@@ -24,6 +24,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "fast: quick gate (auto-applied to anything not slow); "
         "run with `pytest -m fast` (< 5 min on one CPU)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (unires_torch's kernels); "
+        "skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
