@@ -9,7 +9,9 @@ package, so it also runs where JAX is not installed:
 
 Tolerances: kernel vs plain rtol 1e-5, atol 1e-5 * max|input| (float32, the
 same operations in the same order); adjointness relative 1e-5; objective
-traces relative 1e-4 (float32 sums in another order).
+traces relative 1e-4 (float32 sums in another order), 1e-3 with the rigid
+and scaling updates on (they feed the sums' differences back into the fit);
+co-registration card vs CPU 0.1 mm / 2e-3.
 """
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ import unires_torch
 from unires_torch.geometry import affine_diag, affine_matrix_classic
 from unires_torch.models.proj_op import proj_info
 from unires_torch.ops import resample as tr
+from unires_torch.pipeline.convert import convert_state
 from unires_torch.pipeline.fit import fit
 from unires_torch.utils.phantoms import brain_phantom
 
@@ -71,14 +74,27 @@ def test_kernels_match_plain(cuda, name, mat, out_dim, order):
     assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
 
 
+@pytest.mark.parametrize("name,mat,out_dim", MAPS)
+def test_pull_grad_kernel_matches_plain(cuda, name, mat, out_dim):
+    vol = _vol(IN_DIM, 9, cuda)
+    M = tr.affine_to_M(mat)
+    n0 = tr.pull_grad.launches
+    got = tr.pull_grad(vol, M, out_dim)
+    torch.cuda.synchronize()
+    assert tr.pull_grad.launches == n0 + 1
+    assert got.shape == tuple(out_dim) + (3,) and got.is_contiguous()
+    _close(got, tr.pull_grad_plain(vol, M, out_dim), float(vol.abs().max()))
+
+
 def test_wrappers_check_their_inputs(cuda):
     M = np.eye(4)[:3]
     with pytest.raises(TypeError):
         tr.pull(torch.zeros(IN_DIM, dtype=torch.float64, device=cuda), M, IN_DIM)
     with pytest.raises(ValueError):
         tr.push(torch.zeros(IN_DIM, device=cuda).transpose(0, 2), M, IN_DIM)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        tr.pull_grad(torch.zeros(IN_DIM, device=cuda), M, IN_DIM)
+    with pytest.raises(TypeError):
+        tr.pull_grad(torch.zeros(IN_DIM, dtype=torch.float64, device=cuda),
+                     M, IN_DIM)
 
 
 def test_card_fit_matches_cpu_fit(cuda):
@@ -106,3 +122,39 @@ def test_card_fit_matches_cpu_fit(cuda):
         grew = (tr.pull.launches > n0[0], tr.push.launches > n0[1])
         assert grew == ((True, True) if dev == "cuda" else (False, False))
     np.testing.assert_allclose(traces["cuda"], traces["cpu"], rtol=1e-4)
+
+
+def test_card_misaligned_fit_matches_cpu_fit(cuda):
+    """Coreg + unified rigid + scaling: coreg on both devices, then both fits
+    from the CPU's co-registered init."""
+    vol = brain_phantom(seed=0)[66:114, 80:136, 66:114]
+    rng = np.random.default_rng(3)
+    chans = []
+    for ax, rp in ((2, [1.2, -0.8, 0.5, 0.015, -0.01, 0.012]),
+                   (0, [-1.0, 0.7, -0.6, -0.012, 0.01, -0.015])):
+        vx = [1.0, 1.0, 1.0]
+        vx[ax] = 4.0
+        dim_x = list(vol.shape)
+        dim_x[ax] = int(np.ceil(vol.shape[ax] / 4.0))
+        po = proj_info(vol.shape, np.eye(4), tuple(dim_x), affine_diag(vx),
+                       rigid=affine_matrix_classic(rp), prof_ip=2, prof_tp=0,
+                       scl=0.1)
+        x = unires_torch.proj_apply("A", torch.from_numpy(vol), po,
+                                    "super-resolution").numpy()
+        x = x + rng.normal(0.0, 75.0, x.shape).astype(np.float32)
+        chans.append([x, affine_diag(vx)])
+    kw = dict(vx=1.0, do_coreg=True, unified_rigid=True, scaling=True,
+              do_print=0, max_iter=4, tolerance=0, write_out=False)
+    inits = {dev: unires_torch.init(chans, unires_torch.Settings(device=dev,
+                                                                 **kw))
+             for dev in ("cpu", "cuda")}
+    mc, mg = (np.asarray(inits[d][2].mat_coreg) for d in ("cpu", "cuda"))
+    np.testing.assert_allclose(mg[:, :3, 3], mc[:, :3, 3], atol=0.1)
+    np.testing.assert_allclose(mg[:, :3, :3], mc[:, :3, :3], atol=2e-3)
+    x, y, s = inits["cpu"]
+    xg, yg, sg = convert_state(x, y, s, cuda)
+    n0 = tr.pull_grad.launches
+    _, _, _, obj_g, _ = fit(xg, yg, sg)
+    assert tr.pull_grad.launches > n0
+    _, _, _, obj_c, _ = fit(x, y, s)
+    np.testing.assert_allclose(obj_g, obj_c, rtol=1e-3)

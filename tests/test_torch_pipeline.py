@@ -5,7 +5,18 @@ co-registration: tau, lam0 and rho to relative 1e-6 (the same host code), the
 initial y and the final y to relative L2 1e-3 and the objective trace to
 relative 1e-3 (six coupled float32 iterations; the port sums the objective
 in float64).
+
+The misaligned problem (two channels with rigid misalignment and even/odd
+scaling 0.1; co-registration on a 4 mm and a 1 mm level, unified rigid and
+scaling on; 4 iterations): each tolerance is a few times the difference
+measured on the CPU. Coreg mats to 0.01 mm / 5e-4 (measured 1.4e-3 mm /
+4.5e-5), the objective trace to relative 2e-4 (4.1e-5), the fitted scales to
+3e-5 (6.6e-6), q to 1e-3 mm / 7e-4 (2.8e-4 / 2.2e-4), R to 6e-3 mm / 5e-4
+(2.0e-3 / 1.6e-4). A fit continued from a JAX mid-fit state starts from
+identical poses: its trace to relative 2e-6 (measured 2.3e-7) and its q to
+4e-5 mm / 1e-5 (3.9e-6 / 8.5e-7).
 """
+import copy
 import importlib
 import os
 
@@ -168,9 +179,90 @@ def test_single_channel_clean_fov_matches_jax(chans):
     assert _rel(got, want) < 1e-6
 
 
-UNPORTED = [dict(do_coreg=True), dict(do_atlas_align=True),
-            dict(unified_rigid=True), dict(scaling=True),
-            dict(do_res_origin=True), dict(label=("l.nii.gz", (0, 0))),
+MIS_KW = dict(KW, do_coreg=True, unified_rigid=True, scaling=True,
+              max_iter=4, chunk_iters=2,
+              coreg_params=dict(cost_fun="nmi", group="SE", samp=1, fwhm=7.0,
+                                mean_space=False, levels=(4.0,)))
+MIS_POSES = ([1.0, -0.5, 0.4, 0.02, -0.01, 0.015],
+             [-0.8, 0.6, -0.3, -0.015, 0.01, -0.01])
+
+
+@pytest.fixture(scope="module")
+def misaligned():
+    gt = blob_phantom(dim=(24, 24, 25), amplitude=1000.0, seed=5)
+    chans = []
+    for ax, seed, rp in zip((2, 0), (11, 22), MIS_POSES):
+        x, mat, _ = degrade(gt, thick_axis=ax, thick=4.0, noise_sd=30.0,
+                            seed=seed, scl=0.1, rigid_params=rp)
+        chans.append([x, mat])
+    xj, yj, sj = unires_tpu.init(chans, unires_tpu.Settings(**MIS_KW))
+    xt, yt, st = unires_torch.init(chans, unires_torch.Settings(
+        device="cpu", **MIS_KW))
+    start = copy.deepcopy((xj, yj, sj))  # for the mid-fit continuation
+    yj, Rj, _, obj_j, _ = j_fit(xj, yj, sj)
+    yt, Rt, _, obj_t, _ = t_fit(xt, yt, st)
+    return dict(start=start, jax=(xj, sj, Rj, obj_j), torch=(xt, st, Rt, obj_t))
+
+
+def _qs(x):
+    return np.stack([o.rigid_q for xc in x for o in xc])
+
+
+def test_misaligned_coreg_matches_jax(misaligned):
+    (_, sj, _, _), (_, st, _, _) = misaligned["jax"], misaligned["torch"]
+    mj, mt = np.asarray(sj.mat_coreg), np.asarray(st.mat_coreg)
+    assert mt.shape == mj.shape == (2, 4, 4)
+    np.testing.assert_allclose(mt[:, :3, 3], mj[:, :3, 3], atol=0.01)
+    np.testing.assert_allclose(mt[:, :3, :3], mj[:, :3, :3], atol=5e-4)
+
+
+def test_misaligned_fit_matches_jax(misaligned):
+    (xj, _, Rj, obj_j), (xt, _, Rt, obj_t) = (misaligned["jax"],
+                                              misaligned["torch"])
+    assert obj_t.shape == obj_j.shape == (MIS_KW["max_iter"], 3)
+    np.testing.assert_allclose(obj_t, obj_j, rtol=2e-4)
+    assert obj_t[-1, 0] < obj_t[0, 0]
+    qj, qt = _qs(xj), _qs(xt)
+    assert np.abs(qt).max() > 0.05  # the poses moved
+    np.testing.assert_allclose(qt[:, :3], qj[:, :3], atol=1e-3)
+    np.testing.assert_allclose(qt[:, 3:], qj[:, 3:], atol=7e-4)
+    sclj = [o.po.scl for xc in xj for o in xc]
+    sclt = [o.po.scl for xc in xt for o in xc]
+    assert min(sclt) > 0.05  # towards the simulated 0.1
+    np.testing.assert_allclose(sclt, sclj, atol=3e-5)
+    np.testing.assert_allclose(Rt[:, :3, :3], Rj[:, :3, :3], atol=5e-4)
+    np.testing.assert_allclose(Rt[:, :3, 3], Rj[:, :3, 3], atol=6e-3)
+
+
+def test_fit_continues_jax_mid_fit_state(misaligned):
+    """convert_state carries a JAX FitState (poses, scales, z, w, schedule)
+    after one 2-iteration chunk; the port's continuation retraces the JAX
+    package's second chunk."""
+    from unires_tpu.pipeline.fit import _gather_dyn_taus, _gather_subdats
+    from unires_tpu.pipeline.fit import get_sched as j_get_sched
+    from unires_tpu.solvers.fitloop import init_state as j_init_state
+    from unires_tpu.solvers.fitloop import make_fit_chunk
+
+    xj, yj, sj = misaligned["start"]
+    sj = j_get_sched(2, sj)
+    chunk = make_fit_chunk(xj, yj, sj, 2)
+    xd = tuple(tuple(o.dat for o in xc) for xc in xj)
+    args = (xd, _gather_dyn_taus(xj), _gather_subdats(xj, sj))
+    st, _, _, _ = chunk(j_init_state(xj, yj, sj), *args)
+    xt, yt, stt, state = convert_state(xj, yj, sj, "cpu", state=st)
+    assert state.n_iter == 2 and state.q.shape == (2, 6)
+    np.testing.assert_array_equal(_qs(xt), np.asarray(st.q, np.float64))
+    st2, objs2, _, _ = chunk(st, *args)
+    _, _, _, obj_t, n = t_fit(xt, yt, stt, state=state)
+    assert n == 2
+    np.testing.assert_allclose(obj_t, np.asarray(objs2, np.float64),
+                               rtol=2e-6)
+    q2 = np.asarray(st2.q, np.float64)
+    np.testing.assert_allclose(_qs(xt)[:, :3], q2[:, :3], atol=4e-5)
+    np.testing.assert_allclose(_qs(xt)[:, 3:], q2[:, 3:], atol=1e-5)
+
+
+UNPORTED = [dict(do_atlas_align=True), dict(do_res_origin=True), dict(label=("l.nii.gz", (0, 0))),
             dict(force_inplane_res=True), dict(checkpoint_every=5),
             dict(resume=True), dict(shard="batch"), dict(profile_dir="p"),
             dict(common_output=True), dict(plot_conv=True),

@@ -1,8 +1,8 @@
 """unires_torch.ops.resample against unires_tpu.ops.resample.
 
-The port's pull/push on CPU tensors are the plain PyTorch versions; here they
-are held against the JAX package's XLA oracles and, at one small size each,
-against the Pallas shear kernels in interpret mode. Tolerances: rtol 1e-5 and
+The port's pull/push/pull_grad on CPU tensors are the plain PyTorch versions;
+here they are held against the JAX package's XLA oracles and, at one small
+size each, against the Pallas kernels in interpret mode. Tolerances: rtol 1e-5 and
 atol 1e-5 * max|input| (float32, the same operations in the same order up to
 fused multiply-adds); adjointness relative 1e-5.
 """
@@ -144,6 +144,56 @@ def test_push_matches_pallas_shear_interpret():
     _close(got, want, np.abs(vals).max())
 
 
+# pull_grad against both Pallas pull_grad kernels, on the maps of
+# tests/test_pallas_kernels.py. Where a sample coordinate sits within 1e-4 of
+# an integer the trilinear gradient jumps between neighbouring cells, and one
+# float32 rounding of the Pallas kernels' index arithmetic may pick the other
+# cell: those elements (a measure-zero set, checked to stay under 2 %) are
+# exempt, as in that file.
+GRAD_AFFINES = [
+    ("identity", np.eye(4)),
+    ("shift", affine_matrix_classic([2.3, -1.7, 0.4])),
+    ("smallrot", affine_matrix_classic([1.1, -0.6, 0.3, 0.02, -0.01, 0.015])),
+    ("bigrot", affine_matrix_classic([0.5, 0.2, -0.3, 0.045, -0.04, 0.03])),
+]
+
+
+def _crossing(M, out_dim, eps=1e-4):
+    ii, jj, kk = np.meshgrid(*(np.arange(d) for d in out_dim), indexing="ij")
+    Mn = np.asarray(M, np.float64)
+    near = np.zeros(out_dim, bool)
+    for d in range(3):
+        g = Mn[d, 0] * ii + Mn[d, 1] * jj + Mn[d, 2] * kk + Mn[d, 3]
+        near |= np.abs(g - np.round(g)) < eps
+    return near
+
+
+@pytest.mark.parametrize("kind", ["shear", "plain"])
+@pytest.mark.parametrize("name,mat", GRAD_AFFINES)
+def test_pull_grad_matches_pallas_interpret(name, mat, kind):
+    from unires_tpu.ops import pallas_resample as pr
+
+    vol = _vol(PALLAS_IN, 11)
+    M = tr.affine_to_M(mat)
+    with pltpu.force_tpu_interpret_mode():
+        if kind == "shear":
+            plan = pr.plan_pull_shear(PALLAS_IN, PALLAS_OUT, mat[:3, :4])
+            want = pr.pallas_pull_grad_shear(jnp.asarray(vol), jnp.asarray(M),
+                                             PALLAS_OUT, plan)
+        else:
+            plan = pr.plan_pull(PALLAS_IN, PALLAS_OUT, mat[:3, :4])
+            want = pr.pallas_pull_grad(jnp.asarray(vol), jnp.asarray(M),
+                                       PALLAS_OUT, plan)
+    assert plan is not None
+    got = tr.pull_grad(torch.from_numpy(vol), M, PALLAS_OUT).numpy()
+    assert got.shape == PALLAS_OUT + (3,)
+    bad = (np.abs(got - np.asarray(want)) > 1e-5 * np.abs(vol).max()
+           + 1e-5 * np.abs(np.asarray(want))).any(axis=-1)
+    cross = _crossing(M, PALLAS_OUT)
+    assert not (bad & ~cross).any()
+    assert cross.mean() < 0.02 or not bad.any()
+
+
 # --- dispatch ---------------------------------------------------------------
 
 def test_wrappers_refuse_devices_without_kernel():
@@ -153,14 +203,16 @@ def test_wrappers_refuse_devices_without_kernel():
         tr.pull(vol, M, IN_DIM)
     with pytest.raises(ValueError):
         tr.push(vol, M, IN_DIM)
-    with pytest.raises(NotImplementedError, match="queue 2"):
+    with pytest.raises(ValueError):
         tr.pull_grad(vol, M, IN_DIM)
     with pytest.raises(ValueError):
         tr.pull(torch.zeros(IN_DIM), M, IN_DIM, order=3)
 
 
 def test_cpu_tensors_never_launch_kernels():
-    before = (tr.pull.launches, tr.push.launches)
+    before = (tr.pull.launches, tr.push.launches, tr.pull_grad.launches)
     vol = torch.from_numpy(_vol(IN_DIM, 6))
     tr.push(tr.pull(vol, np.eye(4)[:3], IN_DIM), np.eye(4)[:3], IN_DIM)
-    assert (tr.pull.launches, tr.push.launches) == before
+    tr.pull_grad(vol, np.eye(4)[:3], IN_DIM)
+    assert (tr.pull.launches, tr.push.launches,
+            tr.pull_grad.launches) == before

@@ -1,10 +1,12 @@
-// Trilinear / nearest pull and its exact adjoint (push) for Hopper (sm_90a).
+// Trilinear / nearest pull, its exact adjoint (push) and its derivative with
+// respect to the sample point (pull_grad) for Hopper (sm_90a).
 //
 // Semantics (the XLA oracles of unires_tpu/ops/resample.py state them plainly):
 //   pull  out[o] = sum_corners w(o, v) * vol[v],  g(o) = M . (i, j, k, 1)
 //         zero bound (out-of-range corners weigh 0); outputs whose sample
 //         point lies outside [-0.5, n - 0.5]^3 are exactly 0.
 //   push  out[v] = sum_o w(o, v) * vals[o]        (push = pull^T)
+//   pull_grad  out[o, d] = d pull(o) / d g_d(o)   (trilinear; same bound/FOV)
 // M and Minv are (3,4) float32 maps passed by value, the CUDA counterpart of
 // the Pallas kernels' scalar prefetch. Volumes are float32, C order (X, Y, Z).
 //
@@ -199,6 +201,81 @@ __global__ void push_kernel(const float* __restrict__ vals,
   out[t] = acc;
 }
 
+// ---------------------------------------------------------------------------
+// pull_grad
+//
+// Replaces the Pallas kernels _pull_grad_shear_kernel (pallas_resample.py:547,
+// via pallas_pull_grad_shear) and _pull_grad_kernel (pallas_resample.py:328,
+// via pallas_pull_grad) of unires_tpu/ops/pallas_resample.py: d pull / d g,
+// the derivative of the trilinear sample with respect to the sample point,
+// as _pull_grad_gather (unires_tpu/ops/resample.py:210-245) states it.
+//
+// Per output voxel and per corner (a, b, c) with value v of the 8 corners:
+//   grad_x += (+-1) * wb * wc * v,  grad_y += wa * (+-1) * wc * v,
+//   grad_z += wa * wb * (+-1) * v
+// (+1 for the upper corner, -1 for the lower), out-of-range corners count 0,
+// and outputs whose sample point lies outside the FOV are 0. Each product and
+// sum is rounded in the plain version's order (((s * w) * w) * v, summed over
+// a, b, c in loop order) with the _rn intrinsics, and the sample point comes
+// from the same map_axis as pull, so kernel and plain version agree to the
+// bit.
+//
+// Bound: a gather like pull (8 corner reads) with three times the stores:
+// the output is (ox, oy, oz, 3) in C order, the JAX layout, written directly
+// (thread t stores floats 3t .. 3t+2, so a warp stores 96 contiguous floats).
+// Design: pull's, one thread per output voxel along Z; no shared memory.
+// ---------------------------------------------------------------------------
+__global__ void pull_grad_kernel(const float* __restrict__ vol,
+                                 float* __restrict__ out, Map34 M, int nx,
+                                 int ny, int nz, int ox, int oy, int oz) {
+  const int n_out = ox * oy * oz;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_out) return;
+  const int k = t % oz;
+  const int r = t / oz;
+  const int j = r % oy;
+  const int i = r / oy;
+  float g[3];
+  map_point(M, (float)i, (float)j, (float)k, g);
+  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+  if (in_fov(g, nx, ny, nz)) {
+    const float fa = floorf(g[0]), fb = floorf(g[1]), fc = floorf(g[2]);
+    const int a0 = (int)fa, b0 = (int)fb, c0 = (int)fc;
+    const float f0 = __fsub_rn(g[0], fa);
+    const float f1 = __fsub_rn(g[1], fb);
+    const float f2 = __fsub_rn(g[2], fc);
+#pragma unroll
+    for (int da = 0; da < 2; ++da) {
+      const int a = a0 + da;
+      if (a < 0 || a >= nx) continue;
+      const float wa = da ? f0 : __fsub_rn(1.0f, f0);
+      const float sa = da ? 1.0f : -1.0f;
+#pragma unroll
+      for (int db = 0; db < 2; ++db) {
+        const int b = b0 + db;
+        if (b < 0 || b >= ny) continue;
+        const float wb = db ? f1 : __fsub_rn(1.0f, f1);
+        const float sb = db ? 1.0f : -1.0f;
+#pragma unroll
+        for (int dc = 0; dc < 2; ++dc) {
+          const int c = c0 + dc;
+          if (c < 0 || c >= nz) continue;
+          const float wc = dc ? f2 : __fsub_rn(1.0f, f2);
+          const float sc = dc ? 1.0f : -1.0f;
+          const float v = __ldg(vol + (a * ny + b) * nz + c);
+          gx = madd(gx, __fmul_rn(__fmul_rn(sa, wb), wc), v);
+          gy = madd(gy, __fmul_rn(__fmul_rn(wa, sb), wc), v);
+          gz = madd(gz, __fmul_rn(__fmul_rn(wa, wb), sc), v);
+        }
+      }
+    }
+  }
+  float* o = out + 3 * (long long)t;
+  o[0] = gx;
+  o[1] = gy;
+  o[2] = gz;
+}
+
 constexpr int kThreads = 256;
 
 inline Map34 load_map(const float* m) {
@@ -247,6 +324,17 @@ int unires_push(const float* vals, float* out, const float* m,
   else
     push_kernel<1><<<n_blocks(n), kThreads, 0, s>>>(
         vals, out, M, Minv, sx, sy, sz, tx, ty, tz, wx, wy, wz);
+  return (int)cudaGetLastError();
+}
+
+// vol (nx, ny, nz) -> out (ox, oy, oz, 3); m: host pointer to 12 floats.
+int unires_pull_grad(const float* vol, float* out, const float* m, int nx,
+                     int ny, int nz, int ox, int oy, int oz, void* stream) {
+  const Map34 M = load_map(m);
+  const long long n = (long long)ox * oy * oz;
+  if (n == 0) return (int)cudaGetLastError();
+  pull_grad_kernel<<<n_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+      vol, out, M, nx, ny, nz, ox, oy, oz);
   return (int)cudaGetLastError();
 }
 

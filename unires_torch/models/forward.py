@@ -23,18 +23,22 @@ import numpy as np
 import torch
 
 from ..ops.conv import blur_down_sep, blur_up_sep
-from ..ops.resample import pull, push
+from ..ops.resample import pull, pull_grad, push
 from ..ops.scaling import apply_scaling
 from .proj_op import ProjOp
 
 Method = Literal["super-resolution", "denoising"]
 
 
-def make_obs_ops(po: ProjOp, method: Method):
-    """A / At / AtA callables for one observation.
-
-    Each takes ``(dat, M, Minv, scl)``: the volume, the (3, 4) host maps of
-    the current pose (:func:`obs_dyn_args`) and the even/odd scaling scalar.
+def make_obs_suite(po: ProjOp, method: Method) -> dict:
+    """Everything the solvers need for one observation, as a dict (the JAX
+    package's ``make_obs_suite``): ``A`` / ``At`` / ``AtA`` take
+    ``(dat, M, Minv, scl)``, the volume, the (3, 4) host maps of the current
+    pose (:func:`obs_dyn_args`) and the even/odd scaling scalar;
+    ``project(dat, M)`` is the forward chain without scaling (pull + blur,
+    for the scaling Gauss-Newton update) and ``pull_grad(dat, M)`` the
+    derivative of the pull on the same grid (``dim_yx`` for
+    super-resolution, ``dim_x`` for denoising) for the rigid one.
     """
     src_dim = po.dim_yx if method == "super-resolution" else po.dim_x
     dim_y = po.dim_y
@@ -45,6 +49,10 @@ def make_obs_ops(po: ProjOp, method: Method):
     def push_fn(dat, M, Minv):
         return push(dat, M, dim_y, Minv=Minv)
 
+    def pull_grad_fn(dat, M):
+        return pull_grad(dat, M, src_dim)
+
+    suite = dict(pull=pull_fn, push=push_fn, pull_grad=pull_grad_fn)
     if method == "denoising":
         def A(dat, M, Minv, scl):
             return pull_fn(dat, M)
@@ -55,16 +63,18 @@ def make_obs_ops(po: ProjOp, method: Method):
         def AtA(dat, M, Minv, scl):
             return push_fn(pull_fn(dat, M), M, Minv)
 
-        return A, At, AtA
+        suite.update(A=A, At=At, AtA=AtA, project=pull_fn)
+        return suite
 
     kers = po.smo_ker_1d
     ratio = po.ratio
     axis = po.dim_thick
 
+    def project(dat, M):
+        return blur_down_sep(pull_fn(dat, M), kers, ratio)
+
     def A(dat, M, Minv, scl):
-        out = pull_fn(dat, M)
-        out = blur_down_sep(out, kers, ratio)
-        return apply_scaling(out, scl, axis)
+        return apply_scaling(project(dat, M), scl, axis)
 
     def At(dat, M, Minv, scl):
         out = apply_scaling(dat, scl, axis)
@@ -72,13 +82,19 @@ def make_obs_ops(po: ProjOp, method: Method):
         return push_fn(out, M, Minv)
 
     def AtA(dat, M, Minv, scl):
-        out = pull_fn(dat, M)
-        out = blur_down_sep(out, kers, ratio)
+        out = project(dat, M)
         out = apply_scaling(out, 2.0 * float(scl), axis)
         out = blur_up_sep(out, kers, ratio)
         return push_fn(out, M, Minv)
 
-    return A, At, AtA
+    suite.update(A=A, At=At, AtA=AtA, project=project)
+    return suite
+
+
+def make_obs_ops(po: ProjOp, method: Method):
+    """(A, At, AtA) of :func:`make_obs_suite`."""
+    suite = make_obs_suite(po, method)
+    return suite["A"], suite["At"], suite["AtA"]
 
 
 def obs_dyn_args(po: ProjOp, method: Method, rigid=None):

@@ -30,6 +30,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "unires_pull": [_VP, _VP, _VP] + [_I] * 7 + [_VP],
     "unires_push": [_VP, _VP, _VP, _VP] + [_I] * 10 + [_VP],
+    "unires_pull_grad": [_VP, _VP, _VP] + [_I] * 6 + [_VP],
 }
 
 

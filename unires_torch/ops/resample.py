@@ -5,14 +5,15 @@ over the FOV [-0.5, n-0.5]^3, trilinear or nearest), written twice:
 
 * the plain PyTorch versions ``pull_plain`` / ``push_plain`` /
   ``pull_grad_plain``, tensor ops transcribed from the XLA oracles; and
-* hand-written CUDA kernels (``unires_torch/csrc/resample.cu``) for pull and
-  push, which replace the six Pallas kernels of
+* hand-written CUDA kernels (``unires_torch/csrc/resample.cu``) for pull,
+  push and pull_grad, which replace the six Pallas kernels of
   ``unires_tpu/ops/pallas_resample.py`` that the card cannot run.
 
-The public ``pull`` / ``push`` take the tensor's device as the dispatch rule:
-a CPU tensor goes through the plain version, a CUDA tensor through the kernel
-(or an error). There is no fallback from one to the other. Each wrapper counts
-its kernel launches in ``pull.launches`` / ``push.launches``.
+The public ``pull`` / ``push`` / ``pull_grad`` take the tensor's device as
+the dispatch rule: a CPU tensor goes through the plain version, a CUDA tensor
+through the kernel (or an error). There is no fallback from one to the other.
+Each wrapper counts its kernel launches in ``pull.launches`` /
+``push.launches`` / ``pull_grad.launches``.
 
 Maps: ``M`` is the (3, 4) float32 map from output voxel to input voxel, held
 on the host (numpy) — it is 12 numbers that reach the kernel as launch
@@ -313,10 +314,21 @@ push.launches = 0
 
 def pull_grad(vol: torch.Tensor, M, out_dim) -> torch.Tensor:
     """Spatial derivative of the pulled image w.r.t. the sample coordinates,
-    shape out_dim + (3,) (trilinear). CPU only so far: its kernel (the port
-    of ``_pull_grad_shear_kernel`` / ``_pull_grad_kernel``) is ROADMAP
-    queue 2, item 3."""
-    if vol.device.type != "cpu":
-        raise NotImplementedError(
-            "pull_grad has no CUDA kernel yet (ROADMAP queue 2, item 3)")
-    return pull_grad_plain(vol, M, out_dim)
+    shape out_dim + (3,) in C order (trilinear, zero bound, 0 outside the
+    FOV). ``M`` is the (3, 4) map given to :func:`pull`."""
+    out_dim = tuple(int(d) for d in out_dim)
+    if _on_cpu(vol, "pull_grad"):
+        return pull_grad_plain(vol, M, out_dim)
+    M = _as_map(M)
+    _check_size(vol.shape, out_dim + (3,))
+    out = torch.empty(out_dim + (3,), dtype=torch.float32, device=vol.device)
+    with torch.cuda.device(vol.device):
+        err = kernels.get().unires_pull_grad(
+            vol.data_ptr(), out.data_ptr(), M.ctypes.data, *vol.shape,
+            *out_dim, torch.cuda.current_stream().cuda_stream)
+    check(err, "pull_grad")
+    pull_grad.launches += 1
+    return out
+
+
+pull_grad.launches = 0

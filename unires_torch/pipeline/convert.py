@@ -2,7 +2,8 @@
 
 ``unires_tpu``'s ``init`` produces ``x`` (XData), ``y`` (YData) and its
 ``Settings``; its ADMM loop carries ``z``/``w``. This module copies them —
-geometry (``ProjOp``), hyper-parameters (tau, sd, mu, lam0) and volumes — into
+geometry (``ProjOp``), hyper-parameters (tau, sd, mu, lam0), volumes and,
+mid-fit, the loop state (poses, scales, schedule counters, z, w) — into
 ``unires_torch`` structs with torch tensors on ``device``, so both packages
 can start an iteration from identical state. It needs no JAX: every array
 goes through ``np.asarray``, and the structs are read by field name.
@@ -16,6 +17,8 @@ import torch
 
 from ..models.proj_op import ProjOp
 from ..settings import Settings
+from ..solvers.fitloop import FitState
+from .fit import _sync_state
 from .structs import Chan, Obs
 
 
@@ -40,11 +43,30 @@ def convert_proj_op(po) -> ProjOp:
                      for f in dataclasses.fields(ProjOp)})
 
 
-def convert_state(x, y, sett, device="cpu", z=None, w=None):
+def convert_fit_state(st, device) -> FitState:
+    """A JAX ``solvers.fitloop.FitState`` (the loop state between two of its
+    chunks) -> the port's ``FitState``: volumes to ``device``, poses and
+    scales to host float64, counters and flags to Python scalars."""
+    return FitState(
+        ys=to_tensor(st.ys, device), z=to_tensor(st.z, device),
+        w=to_tensor(st.w, device), jtv=to_tensor(st.jtv, device),
+        q=np.array(st.q, np.float64), scl=np.array(st.scl, np.float64),
+        cdiags=to_tensor(st.cdiags, device),
+        cnt_scl=int(st.cnt_scl), cnt_scl_iter=int(st.cnt_scl_iter),
+        countdown0=int(st.countdown0), countdown1=int(st.countdown1),
+        n_iter=int(st.n_iter), done=bool(st.done),
+        prev_obj=float(st.prev_obj), obj_max=float(st.obj_max),
+        obj_min=float(st.obj_min), has_prev=bool(st.has_prev))
+
+
+def convert_state(x, y, sett, device="cpu", z=None, w=None, state=None):
     """(x, y, sett[, z, w]) of the JAX pipeline -> the port's, on ``device``.
 
     Returns ``(x, y, sett)``, or ``(x, y, sett, z, w)`` when z and w (the
-    ADMM auxiliary and dual variables, (C, 3, *dim_y)) are given.
+    ADMM auxiliary and dual variables, (C, 3, *dim_y)) are given, or
+    ``(x, y, sett, state)`` for a JAX mid-fit ``FitState``: then the port's
+    x and y also carry that state's poses, scales and volumes, so that
+    ``pipeline.fit.fit(x, y, sett, state)`` continues the JAX fit.
     """
     device = torch.device(device)
     x_t = []
@@ -63,7 +85,12 @@ def convert_state(x, y, sett, device="cpu", z=None, w=None):
         fields["dat"] = None if yc.dat is None else to_tensor(yc.dat, device)
         fields["label"] = None
         y_t.append(Chan(**fields))
-    out = (x_t, y_t, convert_settings(sett, device))
+    sett_t = convert_settings(sett, device)
+    out = (x_t, y_t, sett_t)
+    if state is not None:
+        st = convert_fit_state(state, device)
+        _sync_state(x_t, y_t, sett_t, st)
+        return out + (st,)
     if z is not None or w is not None:
         out = out + (to_tensor(z, device), to_tensor(w, device))
     return out

@@ -1,10 +1,11 @@
 """Fit orchestrator: the host-driven outer loop.
 
 Mirrors ``unires_tpu.pipeline.fit`` (reference ``fit``, unires/run.py:24-207):
-lambda schedule with countdowns, gain-based convergence, FOV cleaning and
-rigid-matrix collection. One outer iteration per step
-(``solvers.fitloop.make_fit_iteration``); the rigid and even/odd scaling
-Gauss-Newton updates are not ported yet (``settings.check_supported``).
+lambda schedule with countdowns, gain-based convergence, optional even/odd
+scaling and unified rigid updates, FOV cleaning and rigid-matrix collection.
+One outer iteration per step (``solvers.fitloop.make_fit_iteration``). The
+JAX package's window re-plans have no counterpart: the CUDA kernels take any
+affine, so a drifted pose never needs another program.
 """
 from __future__ import annotations
 
@@ -14,9 +15,10 @@ import numpy as np
 import torch
 
 from ..geometry import fov_centre, rigid_from_q
+from ..ops.resample import affine_to_M, pull
 from ..settings import check_supported
 from ..solvers.admm import step_size
-from ..solvers.fitloop import init_state, make_fit_iteration
+from ..solvers.fitloop import FitState, init_state, make_fit_iteration
 from ..utils.log import info
 from .structs import XData, YData
 
@@ -70,14 +72,47 @@ def clean_fov(x: XData, y: YData) -> None:
         y[c].dat = torch.where(msk, y[c].dat, 0.0)
 
 
-def fit(x: XData, y: YData, sett):
+def _gather_subdats(x, subs):
+    """Flat per-observation NN-subsampled volumes for the rigid update
+    (reference unires/_update.py:589-593) on the grids that
+    ``solvers.fitloop.chunk_geom`` chose (``subs``); None without unified
+    rigid or where the rigid grid is the main grid (rigid_samp=1 on >= 1 mm
+    data)."""
+    obs = [o for xc in x for o in xc]
+    return [None if s is None or s["sub_is_main"] else
+            pull(o.dat, affine_to_M(s["po"].D_x), s["po"].dim_x, order=0)
+            for o, s in zip(obs, subs)]
+
+
+def _sync_state(x, y, sett, state: FitState) -> None:
+    """Write the loop state back into the pipeline structs: q -> rigid_q and
+    the centre-conjugated po.rigid, scl -> po.scl, ys -> y, lam."""
+    basis = sett.rigid_basis
+    centre = fov_centre(y[0].mat, y[0].dim)
+    i = 0
+    for xc in x:
+        for o in xc:
+            o.rigid_q = np.array(state.q[i], np.float64)
+            if basis is not None:
+                o.po.rigid = rigid_from_q(o.rigid_q, basis, centre)
+            o.po.scl = float(state.scl[i])
+            i += 1
+    reg = np.atleast_1d(np.asarray(sett.reg_scl, np.float64))
+    for c in range(len(y)):
+        y[c].dat = state.ys[c]
+        y[c].lam = float(reg[min(state.cnt_scl, reg.size - 1)]) * y[c].lam0
+
+
+def fit(x: XData, y: YData, sett, state: FitState = None):
     """Run the iterative solver; returns (y, R, jtv, obj_trace, n_iter).
 
-    Output writing is the caller's job (``pipeline.run.fit``).
+    Output writing is the caller's job (``pipeline.run.fit``). ``state``
+    continues a fit from a given loop state (``pipeline.convert``) instead
+    of a fresh one.
     """
     N = sum(len(xc) for xc in x)
     C = len(x)
-    check_supported(sett, N)
+    check_supported(sett)
     sett = get_sched(N, sett)
 
     # schedule position 0
@@ -90,27 +125,31 @@ def fit(x: XData, y: YData, sett):
     R = np.stack([np.eye(4)] * N)
     if sett.max_iter > 0:
         info(sett, "step-size", step_size(x, y, sett))
-        state = init_state(x, y, sett)
+        if state is None:
+            state = init_state(x, y, sett)
         iterate = make_fit_iteration(x, y, sett)
         xdats = [[o.dat for o in xc] for xc in x]
+        subdats = _gather_subdats(x, iterate.subs)
         t00 = info(sett, "fit-start", C, N)
         while not state.done and state.n_iter < sett.max_iter:
             t_it = timer()
-            state, obj, gain = iterate(state, xdats)
+            state, obj, gain = iterate(state, xdats, subdats)
             obj_trace.append(obj)
             info(sett, "fit-ll", state.n_iter - 1, obj, gain, t_it)
+            if sett.do_print >= 2:  # reference verbosity 2 (_util.py:107-129)
+                _sync_state(x, y, sett, state)
+                info(sett, "reg-param", x)
+                info(sett, "scl-param", x)
         if state.done:
             info(sett, "fit-finish", t00, state.n_iter - 1)
-        for c in range(C):
-            y[c].dat = state.ys[c]
-            y[c].lam = float(reg[min(state.cnt_scl, reg.size - 1)]) * y[c].lam0
+        _sync_state(x, y, sett, state)
         jtv = state.jtv
 
     if sett.clean_fov:
         clean_fov(x, y)
 
     # rigid matrices (reference run.py:195-200): centre-conjugated world
-    # transforms of the (here fixed) pose parameters
+    # transforms of the fitted pose parameters
     centre = fov_centre(y[0].mat, y[0].dim)
     cnt = 0
     for c in range(C):

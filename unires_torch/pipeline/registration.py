@@ -1,0 +1,301 @@
+"""Rigid co-registration of the input images by normalised mutual information.
+
+The behaviour of ``unires_tpu.pipeline.registration.affine_align`` (the
+reference init's nitorch ``affine_align``, unires/_core.py:310-368: NMI cost,
+SE group, fwhm 7, one fixed image), without the JAX package's TPU remedies
+(separable-matmul reslice, fused pyramid program, window plans, AOT cache):
+
+* every pyramid level lives on a world-axis-aligned isotropic grid: each
+  image is resliced once through the pull kernel onto the finest level's
+  grid (the movers onto their union FOV box), and coarser levels are
+  smooth + stride decimations of it;
+* the joint histogram uses soft (linear) binning, 64 bins, accumulated in
+  chunks of 65,536 voxels as (64, chunk) x (chunk, 64) products, so the NMI
+  -(H_f + H_m) / H_joint is differentiable in the moved image;
+* its gradient in the se(3) parameters has two halves: the histogram half by
+  ``torch.autograd`` (d NMI / d moved intensities), and the resampler half
+  from the pull_grad kernel contracted to order-<=1 spatial moments (the map
+  is affine in the voxel coordinate, as in ``solvers.rigid``);
+* each level runs an adaptive-step preconditioned descent: step 100, x1.4
+  on accept, x0.5 on reject, at most 150 evaluations, stopping at step
+  <= 1e-7 or after 12 evaluations without progress. Each evaluation reads
+  the loss and 12 moments back to the host once.
+
+The movers of a level run one after another (the JAX package batches them
+with ``vmap``; the per-mover result is the same). ``atlas_align`` and
+``reset_origin`` are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..geometry import (affine_basis, affine_translation, dexpm, expm,
+                        rigid_log, voxel_size)
+from ..ops.lie import compose_maps
+from ..ops.resample import affine_to_M, pull, pull_grad
+from ..solvers.rigid import _centred_coords, _moments
+from ..utils.host import to_host
+
+_BINS = 64
+_CHUNK = 1 << 16
+
+
+# ---------------------------------------------------------------------------
+# Pyramid helpers
+# ---------------------------------------------------------------------------
+
+def _gauss_kernel1d(sd: float) -> np.ndarray:
+    if sd < 1e-3:
+        return np.ones(1, np.float32)
+    r = max(1, int(np.ceil(3 * sd)))
+    t = np.arange(-r, r + 1)
+    k = np.exp(-0.5 * (t / sd) ** 2)
+    return (k / k.sum()).astype(np.float32)
+
+
+def _conv1(vol: torch.Tensor, k: np.ndarray, axis: int) -> torch.Tensor:
+    """Same-size correlation with ``k`` along ``axis``, zero bound: shifted
+    slices and weighted adds in float32 (no conv3d, hence no TF32)."""
+    n = k.shape[0]
+    if n == 1:
+        return vol * float(k[0])
+    h = n // 2
+    pad = [0, 0] * 3
+    pad[2 * (2 - axis)] = pad[2 * (2 - axis) + 1] = h
+    vp = torch.nn.functional.pad(vol, pad)
+    size = vol.shape[axis]
+    out = None
+    for t in range(n):
+        term = float(k[t]) * vp.narrow(axis, t, size)
+        out = term if out is None else out + term
+    return out
+
+
+def _smooth_sep(vol, kx, ky, kz):
+    """Separable gaussian smoothing (same size, zero bound)."""
+    return _conv1(_conv1(_conv1(vol, kx, 0), ky, 1), kz, 2)
+
+
+def _fix_centre(fix_dim, fix_mat) -> np.ndarray:
+    """World coordinate of the fixed image's centre: the exponential acts
+    about this point, decoupling rotations from translations."""
+    dim = np.asarray(fix_dim, np.float64)
+    return (np.asarray(fix_mat, np.float64)
+            @ np.concatenate([(dim - 1) / 2.0, [1.0]]))[:3]
+
+
+def q_to_world(q, group: str, wc: np.ndarray) -> np.ndarray:
+    """Host float64 world transform of the parameters: T(wc) exp(q.B) T(-wc)."""
+    E = expm(np.asarray(q, np.float64), affine_basis(group))
+    return affine_translation(wc) @ E @ affine_translation(-np.asarray(wc))
+
+
+def _world_box(mats_dims):
+    """World-space FOV bounding box (lo, hi) over (mat, dim) pairs."""
+    los, his = [], []
+    for mat, dim in mats_dims:
+        dim = np.asarray(dim, np.float64)
+        corners = np.array([[i, j, k, 1.0] for i in (0, dim[0] - 1)
+                            for j in (0, dim[1] - 1) for k in (0, dim[2] - 1)])
+        W = (np.asarray(mat, np.float64) @ corners.T)[:3]
+        los.append(W.min(axis=1))
+        his.append(W.max(axis=1))
+    return np.min(los, axis=0), np.max(his, axis=0)
+
+
+def _iso_pyramid(dat: torch.Tensor, mat, levels, fwhms, box=None):
+    """Per-level (dat, mat) on world-aligned iso grids, coarse -> fine.
+
+    The finest level is resliced once from the native grid by the pull
+    kernel (after an anti-alias smoothing where the native grid is finer);
+    coarser levels are smooth + stride decimations of it.
+    """
+    fine = float(levels[-1])
+    mat = np.asarray(mat, np.float64)
+    vx = voxel_size(mat)
+    sds = [float(np.sqrt(max(0.42 * (max(fine / v, 1.0) ** 2 - 1), 0.0)))
+           for v in vx]
+    if max(sds) > 1e-3:
+        dat = _smooth_sep(dat, *[_gauss_kernel1d(sd) for sd in sds])
+    lo, hi = _world_box([(mat, dat.shape)]) if box is None else box
+    dim_o = tuple(int(d) for d in np.maximum(np.floor((hi - lo) / fine) + 1,
+                                             1))
+    mat_o = np.eye(4)
+    mat_o[:3, :3] = np.diag([fine] * 3)
+    mat_o[:3, 3] = lo
+    vol = pull(dat.contiguous(), affine_to_M(np.linalg.solve(mat, mat_o)),
+               dim_o)
+    vx_o = voxel_size(mat_o)
+    out = []
+    for lev, fw in zip(levels, fwhms):
+        lsds = []
+        for d in range(3):
+            aa = max(float(lev) / vx_o[d], 1.0)
+            lsds.append(float(np.sqrt((fw / 2.355) ** 2 + 0.42 * (aa ** 2 - 1))
+                              / vx_o[d] if aa > 1 else fw / 2.355 / vx_o[d]))
+        sm = _smooth_sep(vol, *[_gauss_kernel1d(sd) for sd in lsds])
+        step = np.maximum(np.floor(float(lev) / vx_o + 0.5), 1.0)
+        m = mat_o
+        if (step > 1).any():
+            sm = sm[tuple(slice(None, None, int(s)) for s in step)]
+            m = mat_o @ np.diag(list(step) + [1.0])
+        out.append((sm.contiguous(), np.asarray(m, np.float64)))
+    return out
+
+
+# translations are in mm, rotations in radians: scale the search directions
+# per parameter kind
+_QSCALE = np.array([1.0, 1.0, 1.0, 0.01, 0.01, 0.01])
+
+
+# ---------------------------------------------------------------------------
+# NMI and its gradient
+# ---------------------------------------------------------------------------
+
+def _soft_weights(t: torch.Tensor) -> torch.Tensor:
+    """(n,) intensities in bin units -> (bins, n) linear bin weights."""
+    centers = torch.arange(_BINS, dtype=torch.float32, device=t.device)
+    return torch.clamp(1.0 - torch.abs(t[None, :] - centers[:, None]), min=0.0)
+
+
+def _normalise(v: torch.Tensor, vmin, vmax) -> torch.Tensor:
+    return (v - vmin) / torch.clamp(vmax - vmin, min=1e-12) * (_BINS - 1)
+
+
+class _NMILevel:
+    """Loss and gradient of one level's NMI in the six SE(3) parameters.
+
+    The fixed image's bin weights do not depend on the pose: they are built
+    once per level, one (64, 65536) block per chunk.
+    """
+
+    def __init__(self, fix, mov, pre4, post4):
+        self.fix_dim = tuple(fix.shape)
+        self.mov = mov
+        self.pre4, self.post4 = pre4, post4
+        self.basis = affine_basis("SE")
+        fn = _normalise(fix.reshape(-1), fix.min(), fix.max())
+        self.Wf = [_soft_weights(c) for c in torch.split(fn, _CHUNK)]
+        self.mmin, self.mmax = mov.min(), mov.max()
+        self.center = tuple((d - 1) / 2.0 for d in self.fix_dim)
+        self.coords = _centred_coords(self.fix_dim, self.center, fix.device)
+
+    def _hist_loss(self, movf):
+        mn = _normalise(movf, self.mmin, self.mmax)
+        joint = None
+        for Wf, c in zip(self.Wf, torch.split(mn, _CHUNK)):
+            part = Wf @ _soft_weights(c).T
+            joint = part if joint is None else joint + part
+        joint = joint / torch.clamp(joint.sum(), min=1e-12)
+        pf, pm = joint.sum(dim=1), joint.sum(dim=0)
+        eps = 1e-12
+        hf = -torch.sum(pf * torch.log(pf + eps))
+        hm = -torch.sum(pm * torch.log(pm + eps))
+        hj = -torch.sum(joint * torch.log(joint + eps))
+        return -(hf + hm) / torch.clamp(hj, min=eps)
+
+    def __call__(self, q):
+        """(loss, gradient (6,)) at q, one read-back."""
+        R, dR = dexpm(q, self.basis)
+        M = compose_maps(self.pre4, R, self.post4)[0]
+        movf = pull(self.mov, M, self.fix_dim).reshape(-1).detach().requires_grad_()
+        with torch.enable_grad():
+            L = self._hist_loss(movf)
+            ct, = torch.autograd.grad(L, movf)
+        pg = pull_grad(self.mov, M, self.fix_dim)
+        W = ct.reshape(self.fix_dim)[None] * pg.permute(3, 0, 1, 2)
+        mom = _moments(W, self.coords, order=1)  # (3, 4) float64
+        v = to_host(torch.cat([L.detach().double().reshape(1),
+                               mom.reshape(-1)]))
+        m0, m1 = v[1:].reshape(3, 4)[:, 0], v[1:].reshape(3, 4)[:, 1:]
+        # dL/dq_k = sum_v ct_v pg_v . (B_k v): B_k affine in the voxel
+        # coordinate, so the order-<=1 moments suffice
+        B = np.einsum("ij,kjl,lm->kim", self.pre4, dR, self.post4)
+        ccf = B[:, :3, 3] + B[:, :3, :3] @ np.asarray(self.center)
+        g = ccf @ m0 + np.einsum("kde,de->k", B[:, :3, :3], m1)
+        return float(v[0]), g
+
+
+def _descend(vg, q0, iters: int = 150):
+    """Adaptive-step preconditioned descent (the JAX optimiser's loop)."""
+    q = np.asarray(q0, np.float64)
+    loss, g = vg(q)
+    step, it, no_prog = 100.0, 0, 0
+    while it < iters and step > 1e-7 and no_prog < 12:
+        cand = q - step * _QSCALE * _QSCALE * g
+        new_loss, new_g = vg(cand)
+        accept = new_loss < loss
+        # an evaluation "progresses" if it improves the loss by > 1e-5 rel.
+        prog = accept and (loss - new_loss > 1e-5 * abs(loss))
+        no_prog = 0 if prog else no_prog + 1
+        if accept:
+            q, loss, g = cand, new_loss, new_g
+        step = step * 1.4 if accept else step * 0.5
+        it += 1
+    return q, loss
+
+
+def _opt_level(fd, fm, md, mm, q, wc, iters: int = 150):
+    """One level's optimisation of mover (md, mm) against (fd, fm)."""
+    pre4 = (np.linalg.inv(np.asarray(mm, np.float64))
+            @ affine_translation(wc))
+    post4 = affine_translation(-wc) @ np.asarray(fm, np.float64)
+    return _descend(_NMILevel(fd, md, pre4, post4), q, iters)
+
+
+def affine_align(imgs: Sequence[Tuple[torch.Tensor, np.ndarray]], fix: int = 0,
+                 cost_fun: str = "nmi", group: str = "SE", samp=1,
+                 fwhm: float = 7.0, mean_space: bool = False,
+                 levels: Sequence[float] = (8.0, 4.0, 2.0),
+                 gauge: str = "fix") -> np.ndarray:
+    """Pairwise rigid alignment of all images to imgs[fix].
+
+    Returns mat_a (N, 4, 4): world-space transforms; ``mat <- solve(mat_a[i],
+    mat)`` aligns the images (the reference applies exactly this at
+    unires/_core.py:336). ``gauge='fix'`` leaves imgs[fix] untouched
+    (mat_a[fix] = I); ``'mean'`` right-multiplies every mat_a by
+    expm(-mean(log mat_a)), so the common frame is the Lie-mean of the
+    input frames. The schedule always finishes with a ``samp``-mm level.
+    ``mean_space`` is accepted for the reference's signature and unused.
+    """
+    if cost_fun != "nmi":
+        raise NotImplementedError(f"cost_fun={cost_fun!r} (only 'nmi')")
+    if group != "SE":
+        raise NotImplementedError(f"group={group!r} (only 'SE')")
+    if gauge not in ("fix", "mean"):
+        raise ValueError(f"gauge={gauge!r} (use 'fix'|'mean')")
+    N = len(imgs)
+    mat_a = np.stack([np.eye(4)] * N)
+    if N < 2:
+        return mat_a
+    levels = tuple([float(lv) for lv in levels if lv > samp] + [float(samp)])
+    fwhms = ([float(fwhm)] * len(levels) if np.isscalar(fwhm)
+             else [float(f) for f in fwhm])
+    dats = [d if isinstance(d, torch.Tensor) else torch.from_numpy(
+        np.asarray(d, np.float32)) for d, _ in imgs]
+    dats = [d.to(torch.float32) for d in dats]
+    fix_mat = imgs[fix][1]
+    wc = _fix_centre(dats[fix].shape, fix_mat)
+    fix_pyr = _iso_pyramid(dats[fix], fix_mat, levels, fwhms)
+    movers = [i for i in range(N) if i != fix]
+    box = _world_box([(imgs[i][1], dats[i].shape) for i in movers])
+    mov_pyrs = {i: _iso_pyramid(dats[i], imgs[i][1], levels, fwhms, box=box)
+                for i in movers}
+    qs = {i: np.zeros(6) for i in movers}
+    for li in range(len(levels)):
+        fd, fm = fix_pyr[li]
+        for i in movers:
+            md, mm = mov_pyrs[i][li]
+            qs[i], _ = _opt_level(fd, fm, md, mm, qs[i], wc)
+    for i in movers:
+        mat_a[i] = q_to_world(qs[i], "SE", wc)
+    if gauge == "mean":
+        basis = affine_basis("SE")
+        qbar = np.mean([rigid_log(mat_a[i], basis) for i in range(N)], axis=0)
+        Gm = expm(-qbar, basis)
+        for i in range(N):
+            mat_a[i] = mat_a[i] @ Gm
+    return mat_a

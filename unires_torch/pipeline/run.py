@@ -20,17 +20,29 @@ from .fit import fit as _fit
 from .format_y import format_y, init_y_dat, proj_info_add
 from .hyperpar import estimate_hyperpar
 from .nifti import load as nifti_load, save as nifti_save
+from .registration import affine_align
 from .structs import Obs, XData, YData
 
 
 def get_device(sett) -> torch.device:
     """The torch device of ``Settings.device``; raises when it is a CUDA
-    device and there is no CUDA (the port never falls back to the CPU)."""
+    device and there is no CUDA (the port never falls back to the CPU).
+
+    On a card it also pins float32 products to full float32, once, before
+    the pipeline's first product there (coreg's histogram matmuls in
+    ``init``, the DCT preconditioner in ``fit``), as the JAX package's
+    Precision.HIGHEST: no TF32 in cuBLAS, nor in cuDNN (the port runs no
+    convolution through cuDNN, but a user's process might).
+    """
     dev = torch.device(sett.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"Settings.device={sett.device!r} but CUDA is not available "
-            "(pass device='cpu' to run the plain PyTorch path)")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Settings.device={sett.device!r} but CUDA is not available "
+                "(pass device='cpu' to run the plain PyTorch path)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
     return dev
 
 
@@ -97,10 +109,24 @@ def read_data(data, sett) -> XData:
 
 
 def init_reg(x: XData, sett):
-    """Registration init (reference _core.py:310-368). Co-registration and
-    atlas alignment are not ported yet (``check_supported``): this sets the
-    rigid basis and zero poses."""
+    """Registration init (reference _core.py:310-368): NMI co-registration
+    of all images when ``do_coreg`` and N > 1, then the rigid basis and zero
+    poses. Atlas alignment is not ported yet (``check_supported``)."""
+    N = sum(len(xc) for xc in x)
     sett.rigid_basis = affine_basis("SE")
+    if sett.do_coreg and N > 1:
+        t0 = info(sett, "init-reg-begin", "co", N)
+        imgs = [(o.dat, o.mat) for xc in x for o in xc]
+        mat_a = affine_align(imgs, fix=sett.fix,
+                             gauge=getattr(sett, "coreg_gauge", "mean"),
+                             **sett.coreg_params)
+        sett.mat_coreg = mat_a
+        i = 0
+        for xc in x:
+            for o in xc:
+                o.mat = np.linalg.solve(mat_a[i], o.mat)
+                i += 1
+        info(sett, "init-reg-done", t0)
     for xc in x:
         for o in xc:
             o.rigid_q = np.zeros(sett.rigid_basis.shape[0], np.float64)
@@ -113,7 +139,7 @@ def init(data, sett: Optional[Settings] = None):
     get_device(sett)
     info(sett, "init")
     x = read_data(data, sett)
-    check_supported(sett, sum(len(xc) for xc in x))
+    check_supported(sett)
     if sett.max_iter > 0:
         x = estimate_hyperpar(x, sett)
     x, sett = init_reg(x, sett)

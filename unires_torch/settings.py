@@ -130,9 +130,6 @@ settings = Settings
 _UNPORTED = (
     ("do_atlas_align", "queue 1, item 11 (registration)"),
     ("common_output", "queue 1, item 11 (registration: atlas alignment)"),
-    ("unified_rigid", "queue 1, item 9 (rigid Gauss-Newton) and queue 2, "
-                      "item 3 (pull_grad kernel)"),
-    ("scaling", "queue 1, item 9 (scaling Gauss-Newton)"),
     ("do_res_origin", "queue 1, item 11 (registration: reset_origin)"),
     ("force_inplane_res", "queue 1, item 10 (init: resample_inplane)"),
     ("label", "queue 1, item 13 (labels)"),
@@ -145,15 +142,10 @@ _UNPORTED = (
 )
 
 
-def check_supported(sett, N: int) -> None:
+def check_supported(sett) -> None:
     """Raise NotImplementedError for a setting the port does not cover yet."""
     for name, item in _UNPORTED:
         if getattr(sett, name):
             raise NotImplementedError(
                 f"Settings.{name} is not ported to unires_torch yet "
                 f"(ROADMAP {item})")
-    if sett.do_coreg and N > 1:
-        raise NotImplementedError(
-            "Settings.do_coreg with more than one image is not ported to "
-            "unires_torch yet (ROADMAP queue 1, item 11; pass "
-            "do_coreg=False for pre-aligned inputs)")

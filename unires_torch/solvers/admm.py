@@ -162,10 +162,8 @@ def make_admm_body(x, y, sett):
     precond_mode = getattr(sett, "precond", "dct") or "dct"
     if precond_mode not in ("dct", "jacobi", "none"):
         raise ValueError(f"precond={precond_mode!r} (use dct|jacobi|none)")
-    # the DCT products must run in full float32, as the JAX package's
-    # Precision.HIGHEST matmuls do: no TF32 on the card
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    # the DCT products run in full float32 on the card (no TF32), as the JAX
+    # package's Precision.HIGHEST: pipeline.run.get_device pins it
     Cx, Cy, Cz = dct_matrices(dim_y, dev)
     eig_tabs = dct_membrane_tables(dim_y, dev)
     jac_tabs = jacobi_tables(dim_y, dev)

@@ -18,6 +18,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..utils.host import to_host
+
 
 def cg_batched(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
                x0: torch.Tensor, max_iter: int = 20, tol: float = 1e-3,
@@ -42,7 +44,7 @@ def cg_batched(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     ref = (tol * tol) * torch.clamp(dot(b, precond(b)), min=tiny)
     live = torch.ones(b.shape[0], dtype=torch.bool, device=b.device)
     it = 0
-    while it < max_iter and bool(live.any()):  # one host sync per step
+    while it < max_iter and bool(to_host(live.any())):  # one sync per step
         Ap = A(p)
         pAp = dot(p, Ap)
         alpha = torch.where(live, rz / torch.clamp(pAp, min=tiny), 0.0)

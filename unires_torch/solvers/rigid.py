@@ -1,0 +1,243 @@
+"""Unified rigid registration update (Gauss-Newton on the SE(3) pose).
+
+The counterpart of ``unires_tpu.solvers.rigid`` (reference
+unires/_update.py:198-267 and :448-710). The chain rule avoids the
+reference's 18 dAff volumes: dAff_{i,d}(o) is affine in the voxel coordinate
+o, so every contraction sum_o W(o) dAff_{i,d1}(o) dAff_{j,d2}(o) is a
+quadratic form in the order-<=2 spatial moments of W. The device computes
+only the moments of the 3 gradient and 6 Hessian weight volumes, and the
+6x6 system is assembled on the host in float64.
+
+The moments are reduced in float64 through the three 2D marginals of each
+weight volume (``sum_k W``, ``sum_j W``, ``sum_i W``), which give every
+moment of order <= 2 over separable coordinates: 3 volume passes per weight
+instead of 10. With float64 sums the coordinates need no normalisation
+(the JAX fit loop divides them by the half-extent to keep its float32 sums
+accurate).
+
+:func:`_moments`, :func:`_assemble` and :func:`gn_delta` also serve the fit
+loop (``solvers.fitloop``) and co-registration (``pipeline.registration``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..geometry import affine_translation, dexpm, expm, fov_centre, rigid_from_q
+from ..models.forward import make_obs_suite
+from ..models.proj_op import ProjOp, proj_info
+from ..ops.conv import blur_down_sep, blur_up_sep
+from ..ops.resample import affine_to_M, pull
+from ..ops.scaling import apply_scaling
+from ..utils.host import to_host
+
+# symmetric 3x3 -> 6-vector index map (reference _update.py:564)
+_LKP = np.array([[0, 3, 4], [3, 1, 5], [4, 5, 2]])
+_PAIRS = [(0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)]
+
+
+def _centred_coords(dim, center, device):
+    """Per-axis voxel coordinates minus ``center`` (float64 vectors)."""
+    return tuple(torch.arange(n, dtype=torch.float64, device=device) - c
+                 for n, c in zip(dim, center))
+
+
+def _moments(W: torch.Tensor, coords, order: int = 2) -> torch.Tensor:
+    """Spatial moments of ``W`` (..., X, Y, Z) over centred coordinates.
+
+    Returns a float64 tensor (..., 10) = (m0, m1[3], m2[6]) with m1 =
+    (sum W i, sum W j, sum W k) and m2 = (ii, jj, kk, ij, ik, jk), or
+    (..., 4) = (m0, m1[3]) for ``order=1``.
+    """
+    ii, jj, kk = coords
+    Pxy = W.sum(dim=-1, dtype=torch.float64)  # (..., X, Y)
+    Px = Pxy.sum(dim=-1)
+    Py = Pxy.sum(dim=-2)
+    Pxz = W.sum(dim=-2, dtype=torch.float64)  # (..., X, Z)
+    Pz = Pxz.sum(dim=-2)
+    out = [Px.sum(dim=-1), Px @ ii, Py @ jj, Pz @ kk]
+    if order == 2:
+        Pyz = W.sum(dim=-3, dtype=torch.float64)  # (..., Y, Z)
+        out += [Px @ (ii * ii), Py @ (jj * jj), Pz @ (kk * kk),
+                (Pxy @ jj) @ ii, (Pxz @ kk) @ ii, (Pyz @ kk) @ jj]
+    return torch.stack(out, dim=-1)
+
+
+def _assemble(g_m0, g_m1, w_m0, w_m1, w_m2, dRq, center):
+    """Host float64 assembly of the GN gradient and Hessian from moments.
+
+    dAff_{i,d}(o) = c[i,d] + sum_e b[i,d,e] (o_e - center_e) with
+    b[i,d,e] = dRq[i][d,e], c[i,d] = dRq[i][d,3] + sum_e b[i,d,e] center_e.
+    g_m0 (3,), g_m1 (3,3) are the moments of the gradient volumes G_d;
+    w_m0 (6,), w_m1 (6,3), w_m2 (6,6) those of the Hessian weights W_k.
+    """
+    dRq = np.asarray(dRq, np.float64)
+    b = dRq[:, :3, :3]
+    cc = dRq[:, :3, 3] + b @ np.asarray(center, np.float64)
+    g = cc @ np.asarray(g_m0) + np.einsum("kde,de->k", b, np.asarray(g_m1))
+    m2 = np.asarray(w_m2)
+    M2 = np.stack([m2[:, [0, 3, 4]], m2[:, [3, 1, 5]], m2[:, [4, 5, 2]]],
+                  axis=1)  # (6, 3, 3)
+    m0m = np.asarray(w_m0)[_LKP]  # (3, 3)
+    m1m = np.asarray(w_m1)[_LKP]  # (3, 3, 3)
+    M2m = M2[_LKP]  # (3, 3, 3, 3)
+    H = (np.einsum("kd,je,de->kj", cc, cc, m0m)
+         + np.einsum("kd,jef,def->kj", cc, b, m1m)
+         + np.einsum("kdf,je,def->kj", b, cc, m1m)
+         + np.einsum("kdf,jeg,defg->kj", b, b, M2m))
+    return g, H
+
+
+def gn_delta(g, H) -> np.ndarray:
+    """The fit loop's 6x6 solve: Jacobi-equilibrated, with a 1e-5 ridge on
+    the equilibrated system (unires_tpu/solvers/fitloop.py:480-489)."""
+    dscale = 1.0 / np.sqrt(np.abs(np.diagonal(H)) + 1e-20)
+    Hn = H * dscale[:, None] * dscale[None, :]
+    return np.linalg.solve(Hn + 1e-5 * np.eye(len(g)), g * dscale) * dscale
+
+
+def match_stats_device(dat_x, dat_y, M, scl, tau, suite, po: ProjOp, sr,
+                       coords, ctc):
+    """Device part of one GN round: a (1 + 3*4 + 6*10,) float64 tensor
+    (ll, moments of G_0..G_2, moments of W_0..W_5)."""
+    dat_yx = suite["pull"](dat_y, M)
+    if sr:
+        dat_yx = blur_down_sep(dat_yx, po.smo_ker_1d, po.ratio)
+        dat_yx = apply_scaling(dat_yx, scl, po.dim_thick)
+    gr = suite["pull_grad"](dat_y, M)  # (dim..., 3), on the pre-blur grid
+    msk = dat_x != 0
+    res = torch.where(msk, dat_x - dat_yx, 0.0)
+    ll = (0.5 * tau) * res.square().sum(dtype=torch.float64)
+    diff = torch.where(msk & (dat_yx != 0), dat_yx - dat_x, 0.0)
+    if sr:
+        diff = blur_up_sep(diff, po.smo_ker_1d, po.ratio)
+    G = torch.stack([gr[..., d] * diff for d in range(3)])
+    W = torch.stack([gr[..., d1] * gr[..., d2] * ctc for d1, d2 in _PAIRS])
+    return torch.cat([ll.reshape(1), _moments(G, coords, 1).reshape(-1),
+                      _moments(W, coords, 2).reshape(-1)])
+
+
+def split_stats(v: np.ndarray):
+    """(ll, g_m0, g_m1, w_m0, w_m1, w_m2) of :func:`match_stats_device`."""
+    G = v[1:13].reshape(3, 4)
+    W = v[13:].reshape(6, 10)
+    return float(v[0]), G[:, 0], G[:, 1:4], W[:, 0], W[:, 1:4], W[:, 4:]
+
+
+def match_ll_device(dat_x, dat_y, M, scl, tau, suite, po: ProjOp, sr):
+    """The data term at map ``M`` (float64 device scalar)."""
+    dat_yx = suite["pull"](dat_y, M)
+    if sr:
+        dat_yx = blur_down_sep(dat_yx, po.smo_ker_1d, po.ratio)
+        dat_yx = apply_scaling(dat_yx, scl, po.dim_thick)
+    res = torch.where(dat_x != 0, dat_x - dat_yx, 0.0)
+    return (0.5 * tau) * res.square().sum(dtype=torch.float64)
+
+
+def ctc_volume(po: ProjOp, dim, device):
+    """C^T C (1): the blur's normal operator on ones, the Hessian's
+    modulation for super-resolution."""
+    ones = torch.ones(tuple(dim), dtype=torch.float32, device=device)
+    return blur_up_sep(blur_down_sep(ones, po.smo_ker_1d, po.ratio),
+                       po.smo_ker_1d, po.ratio)
+
+
+def make_rigid_fns(po: ProjOp, method: str, device="cpu"):
+    """(match_stats, match_ll, center) for one (possibly subsampled) operator.
+
+    match_stats(dat_x, dat_y, M, scl, tau) ->
+        (ll, G_m0 (3,), G_m1 (3,3), W_m0 (6,), W_m1 (6,3), W_m2 (6,6))
+    on the host in float64; match_ll(...) -> float.
+    """
+    sr = method == "super-resolution"
+    dim = po.dim_yx if sr else po.dim_x
+    center = tuple((d - 1) / 2.0 for d in dim)
+    suite = make_obs_suite(po, method)
+    coords = _centred_coords(dim, center, device)
+    ctc = ctc_volume(po, dim, device) if sr else 1.0
+
+    def match_stats(dat_x, dat_y, M, scl, tau):
+        v = match_stats_device(dat_x, dat_y, M, scl, tau, suite, po, sr,
+                               coords, ctc)
+        return split_stats(to_host(v))
+
+    def match_ll(dat_x, dat_y, M, scl, tau):
+        return float(to_host(match_ll_device(dat_x, dat_y, M, scl, tau,
+                                             suite, po, sr)))
+
+    return match_stats, match_ll, center
+
+
+def update_rigid(x, y, sett, mean_correct: bool = True, max_niter_gn: int = 1,
+                 num_linesearch: int = 4, samp: int = 3):
+    """Gauss-Newton update of every observation's rigid_q (reference
+    :198-267), with the JAX package's host semantics: a plain 6x6 solve,
+    Armijo from step 1, and the mean of q subtracted afterwards when
+    ``mean_correct``."""
+    basis = sett.rigid_basis
+    sll = 0.0
+    for c in range(len(x)):
+        for o in x[c]:
+            sll += _update_rigid_obs(o, y[c], sett, basis, max_niter_gn,
+                                     num_linesearch, samp)
+    if mean_correct:
+        mean_q = np.mean([o.rigid_q for ch in x for o in ch], axis=0)
+        centre = fov_centre(y[0].mat, y[0].dim)
+        for ch in x:
+            for o in ch:
+                o.rigid_q = o.rigid_q - mean_q
+                o.po.rigid = rigid_from_q(o.rigid_q, basis, centre)
+    return x, sll
+
+
+def _update_rigid_obs(o, yc, sett, basis, max_niter_gn, num_linesearch, samp):
+    method = sett.method
+    # subsampled operator for speed (reference :576-579)
+    po = proj_info(o.po.dim_y, o.po.mat_y, o.dim, o.mat, rigid=o.po.rigid,
+                   prof_ip=sett.profile_ip, prof_tp=sett.profile_tp,
+                   gap=sett.gap, scl=o.po.scl, samp=samp)
+    mat = po.mat_yx if method == "super-resolution" else po.mat_x
+    match_stats, match_ll, center = make_rigid_fns(po, method, o.dat.device)
+    if samp > 0 and po.D_x is not None:  # NN-subsample (reference :589-593)
+        dat_x = pull(o.dat, affine_to_M(po.D_x), po.dim_x, order=0)
+    else:
+        dat_x = o.dat
+    q = np.asarray(o.rigid_q, np.float64).copy()
+    tau = float(np.float32(o.tau))
+    scl = float(np.float32(po.scl))
+    # centre-conjugated pose parameterisation (geometry.rigid_from_q), as the
+    # fit loop's pre/post folding
+    centre = fov_centre(po.mat_y, po.dim_y)
+    pre_c = np.linalg.solve(np.asarray(po.mat_y, np.float64),
+                            affine_translation(centre))
+    post_c = affine_translation(-centre) @ np.asarray(mat, np.float64)
+    armijo = 1.0
+    ll = None
+    for _ in range(max_niter_gn):
+        R, dR = dexpm(q, basis)
+        dRq = [pre_c @ dR[i] @ post_c for i in range(basis.shape[0])]
+        M = affine_to_M(pre_c @ R @ post_c)
+        ll, *mom = match_stats(dat_x, yc.dat, M, scl, tau)
+        g, H = _assemble(*mom, dRq, center)
+        try:
+            update = np.linalg.solve(H, g)
+        except np.linalg.LinAlgError:
+            break
+        old_ll, old_q = ll, q.copy()
+        if num_linesearch == 0:
+            q = old_q - armijo * update
+            continue
+        for _ls in range(num_linesearch):
+            cand = old_q - armijo * update
+            Mc = affine_to_M(pre_c @ expm(cand, basis) @ post_c)
+            cand_ll = match_ll(dat_x, yc.dat, Mc, scl, tau)
+            if cand_ll < old_ll:
+                q, ll = cand, cand_ll
+                armijo = min(1.25 * armijo, 1.0)
+                break
+            armijo *= 0.5
+        else:
+            q, ll = old_q, old_ll
+    o.rigid_q = q
+    o.po.rigid = rigid_from_q(q, basis, centre)
+    return float(ll) if ll is not None else 0.0

@@ -1,0 +1,125 @@
+"""Even/odd slice scaling update (Gauss-Newton, closed form).
+
+The counterpart of ``unires_tpu.solvers.scaling_gn`` (reference
+unires/_update.py:270-393, gradient and Hessian from derivations/scaling.m):
+
+    gr  = tau * (sum y_-(x_- - y_-) - sum y_+(x_+ - y_+))
+    Hes = tau * (sum y_-^2 + sum y_+^2)
+
+where +/- are the exp(+s) (even-index) / exp(-s) (odd-index) slice groups and
+y is the projected reconstruction with the current scaling applied. The
+projection (pull + blur) is computed once per observation and update; the
+line search only re-applies the diagonal scaling. CT observations are
+skipped (reference :286-288). Sums are taken in float64 and read back to the
+host together (one synchronisation for the statistics, one for all the line
+search's candidates).
+
+One deliberate difference from the JAX package: its host ``update_scaling``
+builds the pose as the uncentred ``expm(q)`` (unires_tpu/solvers/
+scaling_gn.py:100), while the fit uses the centre-conjugated pose
+(``geometry.rigid_from_q``) everywhere else; the two agree only at q = 0.
+Here the pose is the fit's.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..geometry import fov_centre, rigid_from_q
+from ..models.forward import make_obs_suite, obs_dyn_args
+from ..models.proj_op import ProjOp
+from ..ops.scaling import apply_scaling
+from ..utils.host import to_host
+
+
+def _parity(dat: torch.Tensor, axis: int, start: int) -> torch.Tensor:
+    sl = [slice(None)] * 3
+    sl[axis] = slice(start, None, 2)
+    return dat[tuple(sl)]
+
+
+def _f64(v: torch.Tensor) -> torch.Tensor:
+    return v.sum(dtype=torch.float64)
+
+
+def scaling_stats(dat_y0, dat_x, s, tau, axis) -> np.ndarray:
+    """(ll, gr, Hes) at scaling ``s`` (``dat_y0``: unscaled projection)."""
+    dat_y = apply_scaling(dat_y0, s, axis)
+    msk = dat_x != 0
+    res = torch.where(msk, dat_x - dat_y, 0.0)
+    y = torch.where(msk, dat_y, 0.0)
+    ye, yo = _parity(y, axis, 0), _parity(y, axis, 1)
+    xe, xo = _parity(dat_x, axis, 0), _parity(dat_x, axis, 1)
+    sums = torch.stack([_f64(res * res), _f64(ye * (xe - ye)),
+                        _f64(yo * (xo - yo)), _f64(ye * ye), _f64(yo * yo)])
+    ll2, sp, sm, he, ho = (float(v) for v in to_host(sums))
+    return np.array([0.5 * tau * ll2, tau * (sm - sp), tau * (he + ho)])
+
+
+def scaling_lls(dat_y0, dat_x, cands, tau, axis) -> np.ndarray:
+    """The data term at every scaling in ``cands`` (one read-back)."""
+    msk = dat_x != 0
+    lls = []
+    for s in cands:
+        res = torch.where(msk, dat_x - apply_scaling(dat_y0, s, axis), 0.0)
+        lls.append(_f64(res * res))
+    return 0.5 * tau * to_host(torch.stack(lls))
+
+
+def scaling_step(dat_y0, dat_x, s0, tau, axis, num_ls: int = 6):
+    """One Gauss-Newton step with a halving line search from step 1.
+
+    Returns (s, ll): the first candidate whose data term falls below the
+    current one, else ``s0`` (the fit loop's ``scaling_obs``). With
+    ``num_ls = 0`` the full step is taken unchecked and ll is the old one.
+    """
+    ll0, gr, hes = scaling_stats(dat_y0, dat_x, s0, tau, axis)
+    delta = gr / max(hes, 1e-30)
+    if num_ls == 0:
+        return float(s0 - delta), float(ll0)
+    cands = [s0 - 0.5 ** k * delta for k in range(num_ls)]
+    lls = scaling_lls(dat_y0, dat_x, cands, tau, axis)
+    for s, ll in zip(cands, lls):
+        if ll < ll0:
+            return float(s), float(ll)
+    return float(s0), float(ll0)
+
+
+def make_scaling_fns(po: ProjOp, method: str):
+    """(project, stats, ll_at) for one observation, as the JAX package's."""
+    project = make_obs_suite(po, method)["project"]
+    axis = po.dim_thick
+
+    def stats(dat_y0, dat_x, s, tau):
+        return tuple(scaling_stats(dat_y0, dat_x, s, tau, axis))
+
+    def ll_at(dat_y0, dat_x, s, tau):
+        return float(scaling_lls(dat_y0, dat_x, [s], tau, axis)[0])
+
+    return project, stats, ll_at
+
+
+def update_scaling(x, y, sett, max_niter_gn: int = 1, num_linesearch: int = 6):
+    """Update po.scl for every non-CT observation. Returns (x, sum ll)."""
+    sll = 0.0
+    for c in range(len(x)):
+        for o in x[c]:
+            if o.ct:
+                continue
+            project = make_obs_suite(o.po, sett.method)["project"]
+            rigid = o.po.rigid
+            if o.rigid_q is not None and sett.rigid_basis is not None:
+                rigid = rigid_from_q(o.rigid_q, sett.rigid_basis,
+                                     fov_centre(o.po.mat_y, o.po.dim_y))
+            M, _ = obs_dyn_args(o.po, "super-resolution", rigid)
+            dat_y0 = project(y[c].dat, M)
+            tau = float(np.float32(o.tau))
+            scl = float(o.po.scl)
+            ll = None
+            for _ in range(max_niter_gn):
+                scl, ll = scaling_step(dat_y0, o.dat, scl, tau,
+                                       o.po.dim_thick, num_linesearch)
+            o.po.scl = float(scl)
+            if ll is not None:
+                sll += float(ll)
+    return x, sll
