@@ -11,8 +11,15 @@ Phases, each printing its lines:
 3. Kernels vs plain: the pull, push and pull_grad kernels against their
    plain PyTorch versions on the same CUDA tensors, at the shapes of the
    bench workload (1 mm 181x217x181 recon grid, one 4 mm observation, a
-   ~1 degree / 1 mm pose; pull_grad also on a 1 mm co-registration level);
-   adjointness through the kernels; median times (CUDA events) and GB/s.
+   ~1 degree / 1 mm pose; pull also as the init reslice, at order 0 and on
+   a 45 degree x 3 map; pull_grad also on a 1 mm co-registration level);
+   pull and push must equal their plain versions bitwise. Per case: device
+   ms (each call timed alone, L2 flushed before it) and host ms per call,
+   GB/s, the bound (bytes or float32 operations at the H100's peak rates)
+   and the kernel's share of it, and the one PyTorch call that computes
+   the same function (``grid_sample``, ``grid_sampler_3d_backward``)
+   checked against the plain version, with its ms and the kernel / library
+   ratio; adjointness through the kernels.
 4. Small slices, each fitted on the card and on the CPU (plain versions)
    with the objective traces compared: a pre-aligned 2-channel problem, and
    a misaligned one with co-registration, unified rigid and even/odd
@@ -41,6 +48,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import unires_torch
 import unires_torch.pipeline.run as run_mod
@@ -49,7 +57,8 @@ from unires_torch.geometry import (affine_basis, affine_diag,
 from unires_torch.models.forward import obs_dyn_args, proj_apply
 from unires_torch.models.proj_op import proj_info
 from unires_torch.ops import cuda_build
-from unires_torch.ops.resample import (affine_to_M, pull, pull_grad,
+from unires_torch.ops.resample import (_as_map, _fov_mask, _sample_coords,
+                                       affine_to_M, pull, pull_grad,
                                        pull_grad_plain, pull_plain, push,
                                        push_plain)
 from unires_torch.pipeline.convert import convert_state
@@ -60,6 +69,21 @@ from unires_torch.utils.phantoms import brain_phantom
 
 DIM_Y = (181, 217, 181)
 KERNEL_TOL = 1e-5  # max abs error <= KERNEL_TOL * max|input| (f32 rounding)
+# a yardstick against the plain version: max abs error <= YARDSTICK_TOL *
+# max|plain|. grid_sample maps each point to [-1, 1] and back, which moves
+# it by a few float32 ulps of the coordinate (1.5e-5 at 217).
+YARDSTICK_TOL = 1e-4
+KNOT_EPS = 1e-3  # pull_grad's yardstick is compared this far from knots
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 and float32 outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations per trilinear sample point: the map 18, fractions and
+# weights 18, 8 multiply-adds 16 (pull and push); pull_grad 3 x 8 weight
+# products and multiply-adds instead; nearest: the map and 3 roundings
+OPS_PER_POINT = {"pull": 52, "push": 52, "pull_grad": 120}
+OPS_NEAREST = 21
+SLEEP_CYCLES = 20_000_000  # ~10 ms of device sleep ahead of a timed run
 ADJOINT_TOL = 1e-5  # relative <pull u, v> - <u, push v>
 SLICE_TOL = 1e-4  # card vs CPU objective traces, relative (f32 sums)
 # card vs CPU with rigid and scaling on: the GN updates feed back into the
@@ -104,80 +128,237 @@ def phase_build():
           f"{cuda_build.kernels.build_seconds:.2f} s")
 
 
+_L2_FLUSH = []  # a float32 buffer of twice the card's L2, made on first use
+
+
+def _flush_l2():
+    """Read a buffer twice the size of L2: what the last call left there
+    (its inputs, its dirty outputs) is evicted, the write-backs included."""
+    if not _L2_FLUSH:
+        l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                     50 << 20)
+        _L2_FLUSH.append(torch.ones(2 * l2 // 4, device="cuda"))
+    _L2_FLUSH[0].sum()
+
+
 def _time_ms(fn, reps=7):
-    """Median of ``reps`` CUDA-event timings of fn() (after one warm-up)."""
+    """Device milliseconds per call of fn(): the median over ``reps`` calls
+    (after one warm-up) of CUDA events around one call. Each call follows a
+    flush of L2 outside its events, so it reads its inputs from device
+    memory, as the bound assumes, however small they are. All is queued
+    behind a device-side sleep so that the host's launch overhead leaves
+    no gap (the flush buffer is made before it: an allocation would wait
+    for the sleep)."""
     fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    _flush_l2()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for a, b in events:
+        _flush_l2()
         a.record()
         fn()
         b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def _host_ms(fn, reps=7):
+    """Host milliseconds per call of fn() as a caller sees it: the median
+    of ``reps`` synchronised calls (launch overhead and device time)."""
+    fn()
+    times = []
+    for _ in range(reps):
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(times)
 
 
-def _max_err(got, want, scale, name):
+def _max_err(got, want, scale, name, tol=KERNEL_TOL):
     err = float((got - want).abs().max())
     require(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-    require(err <= KERNEL_TOL * scale,
-            f"{name}: max abs err {err} > {KERNEL_TOL} * {scale}")
+    require(err <= tol * scale, f"{name}: max abs err {err} > {tol} * {scale}")
     return err
 
 
-def phase_kernels(device="cuda"):
-    """Each kernel against its plain version at the main path's shapes."""
-    rng = np.random.default_rng(0)
+def norm_grid(M, in_dim, out_dim, device):
+    """``grid_sample``'s grid (align_corners=True, axes reversed) of the
+    sample points g = M (i, j, k, 1) of an ``out_dim`` grid in an ``in_dim``
+    volume, and the points' FOV mask."""
+    g = _sample_coords(_as_map(M), out_dim, device)
+    grid = torch.stack([2.0 * g[d] / (in_dim[d] - 1) - 1.0 for d in (2, 1, 0)],
+                       dim=-1)[None]
+    return grid, _fov_mask(g, in_dim)
+
+
+def yardstick(name, inp, M, out_dim):
+    """The one PyTorch call that computes kernel ``name``'s function (order
+    1) on the same inputs: its library yardstick, which the port never
+    calls. Everything but that call is built here, outside the timed window.
+    Returns (call, to_plain, label): ``to_plain(call())`` is the result in
+    the plain version's layout."""
+    dev = inp.device
+    if name == "push":  # pull^T: scatter the FOV-masked values (atomicAdd)
+        grid, fov = norm_grid(M, out_dim, tuple(inp.shape), dev)
+        gout = (inp * fov)[None, None]
+        like = torch.zeros((1, 1) + tuple(out_dim), device=dev)
+        return (lambda: torch.ops.aten.grid_sampler_3d_backward(
+                    gout, like, grid, 0, 0, True, [True, False])[0],
+                lambda r: r[0, 0], "grid_sampler_3d_backward (input grad)")
+    grid, fov = norm_grid(M, tuple(inp.shape), out_dim, dev)
+    if name == "pull":
+        return (lambda: F.grid_sample(inp[None, None], grid, mode="bilinear",
+                                      padding_mode="zeros",
+                                      align_corners=True),
+                lambda r: r[0, 0] * fov, "grid_sample")
+    ones = torch.ones((1, 1) + tuple(out_dim), device=dev)
+    scale = torch.tensor([2.0 / (n - 1) for n in inp.shape], device=dev)
+    return (lambda: torch.ops.aten.grid_sampler_3d_backward(
+                ones, inp[None, None], grid, 0, 0, True, [False, True])[1],
+            lambda r: r[0].flip(-1) * scale * fov[..., None],
+            "grid_sampler_3d_backward (grid grad)")
+
+
+def off_knots(M, out_dim, device, eps=KNOT_EPS):
+    """Sample points at least ``eps`` from every integer knot on all three
+    axes, where the trilinear gradient is continuous."""
+    g = _sample_coords(_as_map(M), out_dim, device)
+    ok = None
+    for gd in g:
+        okd = (gd - torch.round(gd)).abs() >= eps
+        ok = okd if ok is None else ok & okd
+    return ok
+
+
+def bound_ms(name, inp, out_dim, order=1):
+    """The least time of the work on an H100 SXM: each input read once and
+    each output written once at 3.35 TB/s, or its float32 operations at
+    67 TFLOP/s, whichever is longer. Returns (ms, "bytes" / "operations")."""
+    n_out = int(np.prod(out_dim))
+    n_pts = inp.numel() if name == "push" else n_out  # sample points
+    nbytes = 4.0 * (inp.numel() + n_out * (3 if name == "pull_grad" else 1))
+    ops = n_pts * (OPS_NEAREST if order == 0 else OPS_PER_POINT[name])
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def centred_map(lin, in_dim, out_dim, offset=0.0):
+    """4x4 affine with linear part ``lin`` taking the centre of an
+    ``out_dim`` grid to the centre of an ``in_dim`` one, shifted by
+    ``offset`` voxels on every axis (an offset moves points off the
+    knots)."""
+    mat = np.eye(4)
+    mat[:3, :3] = lin
+    mat[:3, 3] = ((np.asarray(in_dim) - 1) / 2
+                  - lin @ ((np.asarray(out_dim) - 1) / 2) + offset)
+    return mat
+
+
+def fit_case():
+    """The fit's resampling at bench size: one 4 mm observation (thick along
+    z) of the 181x217x181 recon grid at a ~1 degree / 1 mm pose. Returns its
+    proj_info and the maps (M, Minv) its pull and push take."""
     dim_x = (DIM_Y[0], DIM_Y[1], int(np.ceil(DIM_Y[2] / 4.0)))
     rigid = affine_matrix_classic([1.0, -0.7, 0.6, 0.017, -0.012, 0.01])
     po = proj_info(DIM_Y, np.eye(4), dim_x, affine_diag([1.0, 1.0, 4.0]),
                    rigid=rigid, prof_ip=2, prof_tp=0)
-    M, Minv = obs_dyn_args(po, "super-resolution")
+    return (po,) + tuple(obs_dyn_args(po, "super-resolution"))
+
+
+def kernel_cases(device="cuda"):
+    """The kernel cases of phase 3, at the main path's shapes: a list of
+    (kernel, case, input, map, output grid, keywords) with seeded random
+    inputs on ``device``."""
+    rng = np.random.default_rng(0)
+    po, M, Minv = fit_case()
+    dim_x = po.dim_x
     # the init reslice map: recon voxel -> observation voxel
     M_init = affine_to_M(np.linalg.solve(po.mat_x, po.mat_y))
     # a co-registration map between two 1 mm iso levels of the bench images
     M_coreg = affine_to_M(affine_matrix_classic(
         [0.8, -1.1, 0.5, 0.012, -0.015, 0.009]))
+    # a large map: 45 degrees about each axis, every output voxel 3 input
+    # voxels wide (pull's corners spread out, push's reach below 1)
+    dim_l = tuple(int(np.ceil(n / 3)) for n in DIM_Y)
+    M_large = affine_to_M(centred_map(3.0 * affine_matrix_classic(
+        [0, 0, 0, np.pi / 4, np.pi / 4, np.pi / 4])[:3, :3], DIM_Y, dim_l))
     vol_y = torch.from_numpy(rng.random(DIM_Y, dtype=np.float32)).to(device)
     vol_x = torch.from_numpy(rng.random(dim_x, dtype=np.float32)).to(device)
     vals = torch.from_numpy(rng.random(po.dim_yx, dtype=np.float32)).to(device)
-    print(f"[kernels] dim_y {DIM_Y} dim_yx {po.dim_yx} dim_x {dim_x}")
-
-    rec = {}
-    cases = [
-        ("pull", "fit", lambda: pull(vol_y, M, po.dim_yx),
-         lambda: pull_plain(vol_y, M, po.dim_yx), vol_y, po.dim_yx),
-        ("pull", "init", lambda: pull(vol_x, M_init, DIM_Y),
-         lambda: pull_plain(vol_x, M_init, DIM_Y), vol_x, DIM_Y),
-        ("pull", "order0", lambda: pull(vol_y, M, po.dim_yx, order=0),
-         lambda: pull_plain(vol_y, M, po.dim_yx, order=0), vol_y, po.dim_yx),
-        ("push", "fit", lambda: push(vals, M, DIM_Y, Minv=Minv),
-         lambda: push_plain(vals, M, DIM_Y, Minv=Minv), vals, DIM_Y),
-        ("push", "order0", lambda: push(vals, M, DIM_Y, order=0, Minv=Minv),
-         lambda: push_plain(vals, M, DIM_Y, order=0, Minv=Minv), vals, DIM_Y),
-        ("pull_grad", "fit", lambda: pull_grad(vol_y, M, po.dim_yx),
-         lambda: pull_grad_plain(vol_y, M, po.dim_yx), vol_y,
-         po.dim_yx + (3,)),
-        ("pull_grad", "coreg", lambda: pull_grad(vol_y, M_coreg, DIM_Y),
-         lambda: pull_grad_plain(vol_y, M_coreg, DIM_Y), vol_y, DIM_Y + (3,)),
+    vals_l = torch.from_numpy(rng.random(dim_l, dtype=np.float32)).to(device)
+    return [
+        ("pull", "fit", vol_y, M, po.dim_yx, {}),
+        ("pull", "init", vol_x, M_init, DIM_Y, {}),
+        ("pull", "order0", vol_y, M, po.dim_yx, dict(order=0)),
+        ("pull", "large", vol_y, M_large, dim_l, {}),
+        ("push", "fit", vals, M, DIM_Y, dict(Minv=Minv)),
+        ("push", "order0", vals, M, DIM_Y, dict(order=0, Minv=Minv)),
+        ("push", "large", vals_l, M_large, DIM_Y, {}),
+        ("pull_grad", "fit", vol_y, M, po.dim_yx, {}),
+        ("pull_grad", "coreg", vol_y, M_coreg, DIM_Y, {}),
     ]
-    for name, case, kern, plain, inp, out_dim in cases:
+
+
+def phase_kernels(device="cuda"):
+    """Each kernel against its plain version at the main path's shapes, with
+    its bound and its library yardstick."""
+    cases = kernel_cases(device)
+    print("[kernels] " + " | ".join(
+        f"{name}/{case} {tuple(inp.shape)} -> {tuple(out_dim)}"
+        for name, case, inp, _, out_dim, _ in cases))
+    funcs = {"pull": (pull, pull_plain), "push": (push, push_plain),
+             "pull_grad": (pull_grad, pull_grad_plain)}
+    rec = {}
+    for name, case, inp, Mc, out_dim, kw in cases:
+        kern_fn, plain_fn = funcs[name]
+        kern = lambda: kern_fn(inp, Mc, out_dim, **kw)  # noqa: E731
+        plain = lambda: plain_fn(inp, Mc, out_dim, **kw)  # noqa: E731
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        err = _max_err(got, want, float(inp.abs().max()), f"{name}/{case}")
-        ms, plain_ms = _time_ms(kern), _time_ms(plain)
+        label = f"{name}/{case}"
+        # pull and push repeat their plain version's roundings: exact
+        err = _max_err(got, want, float(inp.abs().max()), label,
+                       KERNEL_TOL if name == "pull_grad" else 0.0)
+        ms, plain_ms, host_ms = _time_ms(kern), _time_ms(plain), _host_ms(kern)
+        order = kw.get("order", 1)
+        bnd, bound_by = bound_ms(name, inp, out_dim, order)
         # bytes: the input volume once and the output once (bench.py:169)
-        gbps = 4.0 * (inp.numel() + np.prod(out_dim)) / (ms * 1e-3) / 1e9
-        print(f"[kernels] {name}/{case}: max_abs_err {err:.3e} | kernel "
-              f"{ms:.4f} ms | plain {plain_ms:.4f} ms | {gbps:.1f} GB/s")
+        gbps = 4.0 * (inp.numel() + np.prod(got.shape)) / (ms * 1e-3) / 1e9
+        line = (f"[kernels] {label}: max_abs_err {err:.3e} | kernel "
+                f"{ms:.4f} ms (host {host_ms:.4f} ms) | plain {plain_ms:.4f} "
+                f"ms | {gbps:.1f} GB/s | "
+                f"bound {bnd:.4f} ms ({bound_by}) | share {bnd / ms:.1%}")
+        lib_ms = lib_call = None
+        if order == 1:
+            call, to_plain, lib_call = yardstick(name, inp, Mc, out_dim)
+            lib = to_plain(call())
+            sel = (off_knots(Mc, out_dim, inp.device)[..., None]
+                   if name == "pull_grad" else torch.ones_like(got, dtype=bool))
+            lib_err = float(((lib - want) * sel).abs().max())
+            lib_tol = YARDSTICK_TOL * float(want.abs().max())
+            require(lib_err <= lib_tol, f"{label}: yardstick {lib_call} err "
+                    f"{lib_err} > {lib_tol}")
+            lib_ms = _time_ms(call)
+            line += (f" | {lib_call} {lib_ms:.4f} ms (err {lib_err:.3e}) | "
+                     f"kernel/library {ms / lib_ms:.3f}")
+        print(line)
         if case == "fit":
-            rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bnd, bound_by=bound_by,
+                             library_ms=lib_ms, library_call=lib_call)
 
-    # adjointness through the kernels: <pull u, v> = <u, push v>
-    lhs = float((pull(vol_y, M, po.dim_yx).double() * vals.double()).sum())
-    rhs = float((vol_y.double() * push(vals, M, DIM_Y, Minv=Minv).double())
+    # adjointness through the kernels at the fit's map: <pull u, v> =
+    # <u, push v>
+    by_case = {(c[0], c[1]): c[2:] for c in cases}
+    vol_y, M, dim_yx, _ = by_case["pull", "fit"]
+    vals, _, _, push_kw = by_case["push", "fit"]
+    lhs = float((pull(vol_y, M, dim_yx).double() * vals.double()).sum())
+    rhs = float((vol_y.double() * push(vals, M, DIM_Y, **push_kw).double())
                 .sum())
     rel = abs(lhs - rhs) / abs(lhs)
     print(f"[kernels] adjoint <pull u, v> {lhs:.10e} <u, push v> {rhs:.10e} "

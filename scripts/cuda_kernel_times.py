@@ -1,0 +1,59 @@
+"""Time the pull and push kernels of a checkout of this repository on one card.
+
+    python3 scripts/cuda_kernel_times.py [--tree PATH] [--label NAME]
+
+Imports ``unires_torch`` from ``--tree`` (default: this checkout), so that
+the kernels of two commits (for example an unpacked ``git archive`` of the
+parent) are timed by the same code in one call. The cases
+(``kernel_cases``) and the timing (``_time_ms``: CUDA events around each
+call, L2 flushed before it; ``_host_ms``: synchronised calls as a caller
+sees them) are this checkout's ``chip_smoke.py``'s. For each pull and push
+case it prints the max abs difference between kernel and plain version
+(must be 0), the kernel's device ms per call three times, and its host ms.
+"""
+import argparse
+import importlib.util
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(HERE))
+    ap.add_argument("--label", default="this")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.tree).resolve()))
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)  # binds the tree's unires_torch
+
+    import torch
+    from unires_torch.ops import resample as tr
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the timing needs a GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"[times {args.label}] {smi} | unires_torch from "
+          f"{Path(tr.__file__).parents[2]}")
+    funcs = {"pull": (tr.pull, tr.pull_plain), "push": (tr.push, tr.push_plain)}
+    for name, case, inp, Mc, out_dim, kw in cs.kernel_cases("cuda"):
+        if name not in funcs:
+            continue
+        kern_fn, plain_fn = funcs[name]
+        kern = lambda: kern_fn(inp, Mc, out_dim, **kw)  # noqa: E731
+        err = float((kern() - plain_fn(inp, Mc, out_dim, **kw)).abs().max())
+        ms = [cs._time_ms(kern, reps=21) for _ in range(3)]
+        host = cs._host_ms(kern, reps=21)
+        print(f"[times {args.label}] {name}/{case}: max_abs_err {err:.3e} | "
+              f"kernel ms " + " ".join(f"{t:.4f}" for t in ms)
+              + f" | host ms {host:.4f}")
+
+
+if __name__ == "__main__":
+    main()

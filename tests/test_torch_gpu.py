@@ -7,8 +7,9 @@ package, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
-Tolerances: kernel vs plain rtol 1e-5, atol 1e-5 * max|input| (float32, the
-same operations in the same order); adjointness relative 1e-5; objective
+Tolerances: pull and push kernels vs plain exact (the same roundings in the
+same order), pull_grad rtol 1e-5, atol 1e-5 * max|input|; adjointness
+relative 1e-5; objective
 traces relative 1e-4 (float32 sums in another order), 1e-3 with the rigid
 and scaling updates on (they feed the sums' differences back into the fit);
 co-registration card vs CPU 0.1 mm / 2e-3.
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 import unires_torch
+from chip_smoke import centred_map
 from unires_torch.geometry import affine_diag, affine_matrix_classic
 from unires_torch.models.proj_op import proj_info
 from unires_torch.ops import resample as tr
@@ -28,12 +30,26 @@ from unires_torch.utils.phantoms import brain_phantom
 pytestmark = pytest.mark.gpu
 
 IN_DIM = (14, 15, 17)
+
+
+def _centred(scale, out_dim):
+    """45 degrees about each axis times ``scale``, taking the centre of the
+    ``out_dim`` grid to the centre of IN_DIM (plus an offset off the knots)."""
+    rot = affine_matrix_classic([0, 0, 0, np.pi / 4, np.pi / 4, np.pi / 4])
+    return centred_map(scale * rot[:3, :3], IN_DIM, out_dim, offset=0.137)
+
+
 MAPS = [
     ("identity", np.eye(4), IN_DIM),
     ("sr", affine_diag([1.0, 1.0, 0.5]) @ affine_matrix_classic(
         [0.0, 0.0, -1.1]), (14, 15, 33)),
     ("rotated", affine_matrix_classic([0.6, -0.4, 0.3, 0.05, -0.03, 0.04]),
      (13, 16, 18)),
+    # every output voxel 3 input voxels wide, rotated: push's reach < 1
+    ("rot45_scale3", _centred(3.0, (6, 6, 7)), (6, 6, 7)),
+    # every output voxel a quarter voxel wide, rotated: push visits up to
+    # 11 x 11 x 13 candidates per target (a window of (7, 7, 9))
+    ("wide", _centred(0.25, (56, 60, 68)), (56, 60, 68)),
 ]
 
 
@@ -65,10 +81,11 @@ def test_kernels_match_plain(cuda, name, mat, out_dim, order):
     got_push = tr.push(vals, M, IN_DIM, order=order)
     torch.cuda.synchronize()
     assert (tr.pull.launches, tr.push.launches) == (n0[0] + 1, n0[1] + 1)
-    _close(got_pull, tr.pull_plain(vol, M, out_dim, order=order),
-           float(vol.abs().max()))
-    _close(got_push, tr.push_plain(vals, M, IN_DIM, order=order),
-           float(vals.abs().max()))
+    # the kernels repeat their plain versions' roundings in the same order
+    want_pull = tr.pull_plain(vol, M, out_dim, order=order)
+    want_push = tr.push_plain(vals, M, IN_DIM, order=order)
+    assert float((got_pull - want_pull).abs().max()) == 0.0
+    assert float((got_push - want_push).abs().max()) == 0.0
     lhs = float((got_pull.double() * vals.double()).sum())
     rhs = float((got_push.double() * vol.double()).sum())
     assert abs(lhs - rhs) <= 1e-5 * abs(lhs)

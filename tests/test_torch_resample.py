@@ -194,6 +194,245 @@ def test_pull_grad_matches_pallas_interpret(name, mat, kind):
     assert cross.mean() < 0.02 or not bad.any()
 
 
+# --- the push kernel's candidate reach --------------------------------------
+# The push kernel visits, per target v, only the sources within push_reach of
+# c = Minv . v. These tests check the bound brute force on the sample points
+# the plain version computes (bitwise the kernel's), and emulate the kernel's
+# narrowed candidate loop on the CPU against push_plain, bit for bit.
+
+_ROT45 = affine_matrix_classic([0, 0, 0, np.pi / 4, np.pi / 4, np.pi / 4])
+REACH_MAPS = [  # (name, linear part of the map out voxel -> in voxel)
+    ("near_identity", affine_matrix_classic(
+        [0, 0, 0, 0.017, -0.012, 0.01])[:3, :3] @ np.diag([1, 1, 0.98])),
+    ("rot45", _ROT45[:3, :3]),
+    ("rot45_scale3", 3.0 * _ROT45[:3, :3]),
+    ("scale4", 4.0 * np.eye(3)),
+    ("scale_quarter", 0.25 * np.eye(3)),
+    ("rot45_scale_quarter", 0.25 * _ROT45[:3, :3]),
+]
+
+
+def _reach_map(lin, in_dim):
+    """A map with linear part ``lin`` taking the centre of its output grid
+    (sized to cover the input) to the input's centre, off the knots."""
+    from chip_smoke import centred_map
+
+    out_dim = tuple(int(np.ceil(n / np.abs(lin).sum(1).min()))
+                    for n in in_dim)
+    return (tr.affine_to_M(centred_map(lin, in_dim, out_dim, offset=0.137)),
+            out_dim)
+
+
+def _candidate_box(M, Minv, order, src_dim, tgt_dim):
+    """Per axis, the kernel's candidate range [lo, hi] of every target:
+    the reach around c = Minv . v, cut to the window and the source grid."""
+    reach = tr.push_reach(M, Minv, order, src_dim, tgt_dim)
+    window = tr.push_window(M)
+    c = tr._sample_coords(Minv, tgt_dim, "cpu")
+    lo, hi = [], []
+    for d in range(3):
+        anc = torch.floor(c[d] + 0.5).clamp(-2.0 ** 20, 2.0 ** 20)
+        lo.append(torch.maximum(torch.maximum(
+            torch.ceil(c[d] - float(reach[d])), anc - window[d]),
+            torch.zeros(())).to(torch.int64))
+        hi.append(torch.minimum(torch.minimum(
+            torch.floor(c[d] + float(reach[d])), anc + window[d]),
+            torch.full((), src_dim[d] - 1.0)).to(torch.int64))
+    return lo, hi
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("name,lin", REACH_MAPS)
+def test_push_reach_holds_every_weighted_source(name, lin, order):
+    """Every (source, target) pair with a weight lies inside the target's
+    candidate range, brute force over every source of the grid."""
+    M, src_dim = _reach_map(lin, IN_DIM)
+    Minv = tr.inverse_map(M)
+    lo, hi = _candidate_box(M, Minv, order, src_dim, IN_DIM)
+    o = torch.meshgrid(*[torch.arange(n, dtype=torch.float32)
+                         for n in src_dim], indexing="ij")
+    g = tr._map_points(M, list(o))
+    fov = tr._fov_mask(g, IN_DIM)
+    pairs = 0
+    for e in np.ndindex(2, 2, 2):
+        if order == 0 and any(e):
+            continue
+        v = [(torch.floor(g[d] + 0.5) if order == 0 else torch.floor(g[d])
+              + e[d]).to(torch.int64) for d in range(3)]
+        ok = fov.clone()
+        for d in range(3):
+            ok &= (v[d] >= 0) & (v[d] < IN_DIM[d])
+        vi = [t[ok] for t in v]
+        for d in range(3):
+            od = o[d][ok].to(torch.int64)
+            assert (od >= lo[d][vi[0], vi[1], vi[2]]).all()
+            assert (od <= hi[d][vi[0], vi[1], vi[2]]).all()
+        pairs += int(ok.sum())
+    assert pairs > 0
+
+
+def _push_narrowed(vals, M, vol_dim, order):
+    """push as the kernel computes it: per target, the candidates of its
+    range in (oa, ob, oc) order, each weight and product rounded as the plain
+    version rounds them."""
+    M = tr._as_map(M)
+    Minv = tr.inverse_map(M)
+    src_dim = tuple(vals.shape)
+    lo, hi = _candidate_box(M, Minv, order, src_dim, vol_dim)
+    count = [int((hi[d] - lo[d] + 1).max()) for d in range(3)]
+    v = [torch.arange(n)[s] for n, s in zip(vol_dim, (
+        (slice(None), None, None), (None, slice(None), None),
+        (None, None, slice(None))))]
+    flat = vals.reshape(-1)
+    out = torch.zeros(vol_dim)
+    for da, db, dc in np.ndindex(*count):
+        o = [lo[0] + da, lo[1] + db, lo[2] + dc]
+        ok = (o[0] <= hi[0]) & (o[1] <= hi[1]) & (o[2] <= hi[2])
+        oc = [torch.minimum(o[d], hi[d]).clamp(min=0) for d in range(3)]
+        g = tr._map_points(M, [t.to(torch.float32) for t in oc])
+        w = None
+        for d in range(3):
+            if order == 0:
+                wd = (torch.floor(g[d] + 0.5).to(torch.int64) == v[d])
+                wd = wd.to(torch.float32)
+            else:
+                a = torch.floor(g[d])
+                f = g[d] - a
+                ai = a.to(torch.int64)
+                wd = torch.where(v[d] == ai, 1.0 - f,
+                                 torch.where(v[d] == ai + 1, f, 0.0))
+            w = wd if w is None else w * wd
+        w = w * (ok & tr._fov_mask(g, vol_dim)).to(torch.float32)
+        idx = (oc[0] * src_dim[1] + oc[1]) * src_dim[2] + oc[2]
+        out = out + w * torch.take(flat, idx)
+    return out
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("name,mat,out_dim", MAPS)
+def test_push_narrowed_candidates_equal_plain_bitwise(name, mat, out_dim,
+                                                      order):
+    """Visiting only the candidates within reach, in the window's order,
+    gives push_plain's result to the bit: the skipped candidates weigh 0."""
+    M = tr.affine_to_M(mat)
+    vals = torch.from_numpy(_vol(out_dim, 21))
+    want = tr.push_plain(vals, M, IN_DIM, order=order)
+    got = _push_narrowed(vals, M, IN_DIM, order)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("given_minv", [False, True])
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("name,lin", REACH_MAPS)
+def test_push_plan_is_the_uncached_plan(name, lin, order, given_minv):
+    """The push wrapper's cached host plan (inverse map, window, reach)
+    equals the one computed afresh, and a second call returns the cache's."""
+    M, src_dim = _reach_map(lin, IN_DIM)
+    Minv = tr.inverse_map(M)
+    key = (M.tobytes(), Minv.tobytes() if given_minv else None, order,
+           src_dim, IN_DIM)
+    plan = tr._push_plan(*key)
+    np.testing.assert_array_equal(plan[0], Minv)
+    assert plan[1] == tr.push_window(M)
+    np.testing.assert_array_equal(
+        plan[2], tr.push_reach(M, Minv, order, src_dim, IN_DIM))
+    assert tr._push_plan(*key) is plan
+
+
+# --- the box planner of the staged variants (scripts/cuda_staged_variants.py)
+
+def _staged_variants():
+    import importlib.util
+    from pathlib import Path
+
+    path = (Path(__file__).resolve().parents[1] / "scripts"
+            / "cuda_staged_variants.py")
+    spec = importlib.util.spec_from_file_location("cuda_staged_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tiles(dim, tile):
+    """(origin, size) of every tile of a grid, as the staged kernels cut it."""
+    for o in np.ndindex(*[(n + t - 1) // t for n, t in zip(dim, tile)]):
+        lo = [a * t for a, t in zip(o, tile)]
+        yield lo, [min(t, n - a) for t, n, a in zip(tile, dim, lo)]
+
+
+@pytest.mark.parametrize("kind", ["pull", "push0", "push1"])
+@pytest.mark.parametrize("name,lin", REACH_MAPS)
+def test_staged_box_holds_every_read(name, lin, kind):
+    """The staged kernels' box, from the tile's 8 corners with the kernels'
+    float32 margins, holds every corner a pull output reads and every
+    candidate a push target visits, and fits the plan's box size."""
+    sv = _staged_variants()
+    M, src_dim = _reach_map(lin, IN_DIM)
+    eps = sv.BOX_EPS
+    if kind == "pull":  # output grid src_dim, input IN_DIM
+        g = torch.stack(tr._sample_coords(M, src_dim, "cpu"))
+        for tile in sv.PULL_TILES:
+            plan = sv.pull_plan(M, src_dim, tile)
+            for o, n in _tiles(src_dim, plan[:3].tolist()):
+                gt = g[:, o[0]:o[0] + n[0], o[1]:o[1] + n[1], o[2]:o[2] + n[2]]
+                gc = gt[:, ::max(n[0] - 1, 1), ::max(n[1] - 1, 1),
+                        ::max(n[2] - 1, 1)].reshape(3, -1)
+                lo = torch.floor(gc - eps).amin(1)
+                hi = torch.floor(gc + eps).amax(1) + 1
+                fl = torch.floor(gt).reshape(3, -1)
+                assert (hi - lo + 1 <= torch.from_numpy(plan[3:6])).all()
+                assert (fl.amin(1) >= lo).all() and (fl.amax(1) + 1 <= hi).all()
+        return
+    order = int(kind[-1])
+    Minv = tr.inverse_map(M)
+    reach = tr.push_reach(M, Minv, order, src_dim, IN_DIM)
+    c = torch.stack(tr._sample_coords(Minv, IN_DIM, "cpu"))
+    r = torch.from_numpy(reach)[:, None]
+    lo_t, hi_t = (torch.stack(b) for b in _candidate_box(M, Minv, order,
+                                                         src_dim, IN_DIM))
+    top = torch.tensor(src_dim)[:, None] - 1
+    for tile in sv.PUSH_TILES:
+        plan = sv.push_plan(Minv, reach, src_dim, IN_DIM, tile)
+        for o, n in _tiles(IN_DIM, plan[:3].tolist()):
+            sl = (slice(None), slice(o[0], o[0] + n[0]),
+                  slice(o[1], o[1] + n[1]), slice(o[2], o[2] + n[2]))
+            cc = c[sl][:, ::max(n[0] - 1, 1), ::max(n[1] - 1, 1),
+                       ::max(n[2] - 1, 1)].reshape(3, -1)
+            lo = torch.ceil(cc - r - eps).amin(1).clamp(min=0)
+            hi = torch.minimum(torch.floor(cc + r + eps).amax(1)[:, None],
+                               top)[:, 0]
+            assert (hi - lo + 1 <= torch.from_numpy(plan[3:6])).all()
+            a, b = lo_t[sl].reshape(3, -1), hi_t[sl].reshape(3, -1)
+            some = (a <= b).all(0)  # targets with a candidate
+            assert (a[:, some] >= lo[:, None]).all()
+            assert (b[:, some] <= hi[:, None]).all()
+
+
+# --- the library yardsticks of chip_smoke.py ---------------------------------
+
+@pytest.mark.parametrize("kernel", ["pull", "push", "pull_grad"])
+@pytest.mark.parametrize("name,mat,out_dim", MAPS)
+def test_yardstick_matches_plain(name, mat, out_dim, kernel):
+    """Each kernel's one-call PyTorch yardstick computes the plain version's
+    function (pull_grad away from the knots, where it is continuous)."""
+    import chip_smoke
+
+    M = tr.affine_to_M(mat)
+    if kernel == "push":
+        inp, dst = torch.from_numpy(_vol(out_dim, 12)), IN_DIM
+        want = tr.push_plain(inp, M, dst)
+    else:
+        inp, dst = torch.from_numpy(_vol(IN_DIM, 13)), out_dim
+        want = (tr.pull_plain if kernel == "pull"
+                else tr.pull_grad_plain)(inp, M, dst)
+    call, to_plain, _ = chip_smoke.yardstick(kernel, inp, M, dst)
+    got = to_plain(call())
+    if kernel == "pull_grad":
+        keep = chip_smoke.off_knots(M, dst, "cpu")[..., None]
+        got, want = got * keep, want * keep
+    _close(got.numpy(), want.numpy(), np.abs(want.numpy()).max())
+
+
 # --- dispatch ---------------------------------------------------------------
 
 def test_wrappers_refuse_devices_without_kernel():

@@ -9,6 +9,9 @@
 //   pull_grad  out[o, d] = d pull(o) / d g_d(o)   (trilinear; same bound/FOV)
 // M and Minv are (3,4) float32 maps passed by value, the CUDA counterpart of
 // the Pallas kernels' scalar prefetch. Volumes are float32, C order (X, Y, Z).
+// Every kernel repeats its plain PyTorch version's roundings in the same
+// order (unires_torch/ops/resample.py), so kernel and plain version agree to
+// the bit.
 //
 // Plain C interface (one function per kernel, returning cudaGetLastError()),
 // loaded with ctypes by unires_torch/ops/cuda_build.py. Each kernel launches on
@@ -18,6 +21,15 @@
 #include <math.h>
 
 namespace {
+
+// pull and push: a block is kLanesZ lanes along z times kRowsY rows along
+// y, so a warp covers 8 (z) x 4 (y) outputs; see push_kernel for why
+constexpr int kLanesZ = 8;
+constexpr int kRowsY = 16;
+// pull: output rows along x a thread computes (i and i + 1)
+constexpr int kRowsX = 2;
+// clamp before a float -> int cast: far anchors have no source anyway
+constexpr float kFar = 1048576.0f;
 
 struct Map34 {
   float m[12];  // row-major (3, 4)
@@ -44,15 +56,20 @@ __device__ __forceinline__ void map_point(const Map34& M, float x, float y,
 }
 
 // extrapolate=False: the sample point lies within [-0.5, n - 0.5] per axis.
+// Bitwise & keeps the test free of branches.
 __device__ __forceinline__ bool in_fov(const float g[3], int nx, int ny,
                                        int nz) {
-  return g[0] >= -0.5f && g[0] <= (float)nx - 0.5f &&
-         g[1] >= -0.5f && g[1] <= (float)ny - 0.5f &&
-         g[2] >= -0.5f && g[2] <= (float)nz - 0.5f;
+  return (g[0] >= -0.5f) & (g[0] <= (float)nx - 0.5f) & (g[1] >= -0.5f) &
+         (g[1] <= (float)ny - 0.5f) & (g[2] >= -0.5f) &
+         (g[2] <= (float)nz - 0.5f);
 }
 
 __device__ __forceinline__ float madd(float acc, float w, float v) {
   return __fadd_rn(acc, __fmul_rn(w, v));
+}
+
+__device__ __forceinline__ int clamp_far(float x) {
+  return (int)fminf(fmaxf(x, -kFar), kFar);
 }
 
 // ---------------------------------------------------------------------------
@@ -61,67 +78,125 @@ __device__ __forceinline__ float madd(float acc, float w, float v) {
 // Replaces the Pallas kernels _pull_shear_kernel (pallas_resample.py:423, via
 // pallas_pull_shear) and _pull_kernel (pallas_resample.py:219, via
 // pallas_pull) of unires_tpu/ops/pallas_resample.py. Their shear pre-pass,
-// window plans and DMA covers exist because a TPU has no fast gather; the
-// card has one, so this kernel needs no plan.
+// window plans and DMA covers exist because a TPU has no fast gather.
 //
-// Bound: a gather. Each output voxel reads 8 neighbouring input voxels and
-// writes one, so the kernel is limited by device-memory bandwidth and by how
-// often the corner reads hit L1/L2. Design: one thread per output voxel,
-// consecutive threads along the last (Z) axis, so stores coalesce and the
-// corner reads of a warp fall on a few neighbouring input rows (the maps of
-// this pipeline are near-identity in their linear part); the read-only path
-// (__ldg) serves the corners. The sample grid is computed from the thread
-// index and never stored.
+// Bound: device memory in principle (the input read once and the output
+// written once: 17 us at the fit's 181x217x181 -> 181x217x185 on an H100 at
+// 3.35 TB/s), in practice the issue rate: the plain version's arithmetic
+// (the map, floors, 12 weight products, 8 multiply-adds, about 60 float
+// operations per output) plus the gather's addressing.
+//
+// Design: the fewest instructions around that arithmetic. The launch grid
+// is (z / kLanesZ, y / kRowsY, x / kRowsX), so no index is split at run
+// time; a warp covers 8 (z) x 4 (y) outputs (stores in 32-byte sectors, and
+// its corner reads fall on a few input rows, served by L1). A thread
+// computes the outputs of rows i and i + 1, whose corner planes overlap in
+// L1. Where every corner of both outputs lies inside the volume (almost
+// everywhere), the 8 corners are read from 4 row pointers at fixed +0 / +1
+// offsets with no test, and the FOV test is implied; elsewhere each corner
+// is tested and an outside corner reads 0, which adds w * 0 as the plain
+// version does. Staging each tile's input box in shared memory (the TPU
+// kernel's VMEM window) measured slower at every tile size tried, L1
+// already serving the overlap (scripts/cuda_staged_variants.py reruns it).
 // ---------------------------------------------------------------------------
 template <int ORDER>
-__global__ void pull_kernel(const float* __restrict__ vol,
-                            float* __restrict__ out, Map34 M, int nx, int ny,
-                            int nz, int ox, int oy, int oz) {
-  const int n_out = ox * oy * oz;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_out) return;
-  const int k = t % oz;
-  const int r = t / oz;
-  const int j = r % oy;
-  const int i = r / oy;
-  float g[3];
-  map_point(M, (float)i, (float)j, (float)k, g);
-  float acc = 0.0f;
-  if (in_fov(g, nx, ny, nz)) {
-    if (ORDER == 0) {
-      const int a = (int)floorf(g[0] + 0.5f);
-      const int b = (int)floorf(g[1] + 0.5f);
-      const int c = (int)floorf(g[2] + 0.5f);
-      if (a >= 0 && a < nx && b >= 0 && b < ny && c >= 0 && c < nz)
-        acc = __ldg(vol + (a * ny + b) * nz + c);
+__global__ void __launch_bounds__(kLanesZ * kRowsY)
+    pull_kernel(const float* __restrict__ vol, float* __restrict__ out,
+                Map34 M, int nx, int ny, int nz, int ox, int oy, int oz) {
+  const int j = blockIdx.y * kRowsY + threadIdx.y;
+  const int k = blockIdx.x * kLanesZ + threadIdx.x;
+  if (j >= oy || k >= oz) return;
+  const int i0 = blockIdx.z * kRowsX;
+  float g[kRowsX][3];
+#pragma unroll
+  for (int q = 0; q < kRowsX; ++q)
+    map_point(M, (float)min(i0 + q, ox - 1), (float)j, (float)k, g[q]);
+  float res[kRowsX];
+  if (ORDER == 0) {
+#pragma unroll
+    for (int q = 0; q < kRowsX; ++q) {
+      const int a = clamp_far(floorf(g[q][0] + 0.5f));
+      const int b = clamp_far(floorf(g[q][1] + 0.5f));
+      const int c = clamp_far(floorf(g[q][2] + 0.5f));
+      const bool ok = in_fov(g[q], nx, ny, nz) & (a >= 0) & (a < nx) &
+                      (b >= 0) & (b < ny) & (c >= 0) & (c < nz);
+      res[q] = ok ? __ldg(vol + (a * ny + b) * nz + c) : 0.0f;
+    }
+  } else {
+    float fl[kRowsX][3], v[kRowsX][8];
+    bool inner = true;
+#pragma unroll
+    for (int q = 0; q < kRowsX; ++q) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) fl[q][d] = floorf(g[q][d]);
+      inner = inner & (fl[q][0] >= 0.0f) & (fl[q][0] < (float)(nx - 1)) &
+              (fl[q][1] >= 0.0f) & (fl[q][1] < (float)(ny - 1)) &
+              (fl[q][2] >= 0.0f) & (fl[q][2] < (float)(nz - 1));
+    }
+    bool keep[kRowsX];
+    if (inner) {
+      // every corner inside the volume, hence g inside the FOV
+      const unsigned sxy = (unsigned)ny * nz;
+#pragma unroll
+      for (int q = 0; q < kRowsX; ++q) {
+        keep[q] = true;
+        const unsigned idx =
+            ((unsigned)fl[q][0] * ny + (unsigned)fl[q][1]) * nz +
+            (unsigned)fl[q][2];
+        const float* p0 = vol + idx;
+        const float* p1 = vol + (idx + nz);
+        const float* p2 = vol + (idx + sxy);
+        const float* p3 = vol + (idx + sxy + nz);
+        v[q][0] = __ldg(p0);
+        v[q][1] = __ldg(p0 + 1);
+        v[q][2] = __ldg(p1);
+        v[q][3] = __ldg(p1 + 1);
+        v[q][4] = __ldg(p2);
+        v[q][5] = __ldg(p2 + 1);
+        v[q][6] = __ldg(p3);
+        v[q][7] = __ldg(p3 + 1);
+      }
     } else {
-      const float fa = floorf(g[0]), fb = floorf(g[1]), fc = floorf(g[2]);
-      const int a0 = (int)fa, b0 = (int)fb, c0 = (int)fc;
-      const float f0 = __fsub_rn(g[0], fa);
-      const float f1 = __fsub_rn(g[1], fb);
-      const float f2 = __fsub_rn(g[2], fc);
 #pragma unroll
-      for (int da = 0; da < 2; ++da) {
-        const int a = a0 + da;
-        if (a < 0 || a >= nx) continue;
-        const float wa = da ? f0 : __fsub_rn(1.0f, f0);
+      for (int q = 0; q < kRowsX; ++q) {
+        keep[q] = in_fov(g[q], nx, ny, nz);
+        const int a0 = clamp_far(fl[q][0]), b0 = clamp_far(fl[q][1]),
+                  c0 = clamp_far(fl[q][2]);
 #pragma unroll
-        for (int db = 0; db < 2; ++db) {
-          const int b = b0 + db;
-          if (b < 0 || b >= ny) continue;
-          const float wab = __fmul_rn(wa, db ? f1 : __fsub_rn(1.0f, f1));
-#pragma unroll
-          for (int dc = 0; dc < 2; ++dc) {
-            const int c = c0 + dc;
-            if (c < 0 || c >= nz) continue;
-            const float w = __fmul_rn(wab, dc ? f2 : __fsub_rn(1.0f, f2));
-            acc = madd(acc, w, __ldg(vol + (a * ny + b) * nz + c));
-          }
+        for (int e = 0; e < 8; ++e) {
+          const int a = a0 + ((e >> 2) & 1), b = b0 + ((e >> 1) & 1),
+                    c = c0 + (e & 1);
+          const bool ok = (a >= 0) & (a < nx) & (b >= 0) & (b < ny) &
+                          (c >= 0) & (c < nz);
+          v[q][e] = ok ? __ldg(vol + (a * ny + b) * nz + c) : 0.0f;
         }
       }
     }
+#pragma unroll
+    for (int q = 0; q < kRowsX; ++q) {
+      const float f0 = __fsub_rn(g[q][0], fl[q][0]);
+      const float f1 = __fsub_rn(g[q][1], fl[q][1]);
+      const float f2 = __fsub_rn(g[q][2], fl[q][2]);
+      const float wa[2] = {__fsub_rn(1.0f, f0), f0};
+      const float wb[2] = {__fsub_rn(1.0f, f1), f1};
+      const float wc[2] = {__fsub_rn(1.0f, f2), f2};
+      // the plain version's corner order: a, then b, then c
+      float s = 0.0f;
+#pragma unroll
+      for (int da = 0; da < 2; ++da)
+#pragma unroll
+        for (int db = 0; db < 2; ++db) {
+          const float wab = __fmul_rn(wa[da], wb[db]);
+#pragma unroll
+          for (int dc = 0; dc < 2; ++dc)
+            s = madd(s, __fmul_rn(wab, wc[dc]), v[q][4 * da + 2 * db + dc]);
+        }
+      res[q] = keep[q] ? s : 0.0f;
+    }
   }
-  out[t] = acc;
+#pragma unroll
+  for (int q = 0; q < kRowsX; ++q)
+    if (i0 + q < ox) out[((long long)(i0 + q) * oy + j) * oz + k] = res[q];
 }
 
 // ---------------------------------------------------------------------------
@@ -132,73 +207,102 @@ __global__ void pull_kernel(const float* __restrict__ vol,
 // and their FOV premask _fov_premask (pallas_resample.py:1235).
 //
 // The gather form of the adjoint, as _push_gather (unires_tpu/ops/
-// resample.py:151-207): one thread per TARGET voxel v. It anchors at
-// round(Minv . v), visits the (2w+1)^3 candidate sources o of the window
-// (w from the L1 row norms of Minv, computed on the host), recomputes pull's
-// sample point g(o) with the same map_axis, and adds pull's weight of o onto v
-// times vals[o]. No atomics: every output is written once by one thread, so a
-// result is bitwise reproducible from run to run.
+// resample.py:151-207) and push_plain state it: target voxel v anchors at
+// round(Minv . v) and sums, over the candidate sources o of its window in
+// (da, db, dc) order, pull's weight of o onto v times vals[o]. No atomics:
+// every output is written once by one thread, so the result is reproducible
+// and bitwise equal to push_plain.
 //
-// Bound: a gather, like pull, but each target reads up to (2w+1)^3 sources
-// (27 for the near-identity maps of this pipeline) of which at most 8 carry
-// weight, so it also spends integer and float work on the candidates it
-// rejects. Design: candidates outside the source grid or the FOV are skipped
-// before any load, loads happen only for nonzero weights, and consecutive
-// threads run along Z so that their candidate reads overlap in L1.
+// Bound: device memory in principle (the source and target volumes once
+// each: 17 us at the fit's shapes on an H100), in practice the issue rate:
+// every (source, target) pair with a weight costs the map, three floors and
+// the weight products, and a near-identity map has ~8 such pairs per target.
+//
+// Design: only sources that can weigh on v are visited. A weight needs
+// |M o + m - v|_inf < 1 (1/2 at order 0), so |o - Minv v|_d <= reach_d, the
+// L1 norm of Minv's row d plus rounding margins (ops/resample.py:
+// push_reach). Per axis the candidates are [ceil(c - reach), floor(c +
+// reach)] cut to the window and the grid: 2 values, rarely 3, at the fit's
+// maps (8.6 candidates per target where the window has 27). They are
+// visited in the window's (da, db, dc) order, and a skipped candidate weighs
+// 0, so the sum is bitwise push_plain's. The partial sums M[d,0] oa and
+// M[d,0] oa + M[d,1] ob are computed once per candidate x and (x, y) row
+// (the plain version rounds left to right, so the bits are the same). The
+// candidate count of a target depends on where Minv v falls between the
+// integers; a warp runs as many iterations as its most demanding lane, so
+// a warp covers 8 (z) x 4 (y) targets, whose Minv v drift less than along 32
+// z (9.8 instead of 12.5 iterations for 8.6 candidates on average at the
+// fit's map). Interior targets skip the FOV test (their weighted sources lie
+// inside it), and every candidate adds w * vals[o], 0 where it weighs
+// nothing. Staging a source box per target tile in shared memory, each
+// source's floors and fractions computed once, measured slower at every
+// tile size tried (scripts/cuda_staged_variants.py).
 // ---------------------------------------------------------------------------
 template <int ORDER>
-__global__ void push_kernel(const float* __restrict__ vals,
-                            float* __restrict__ out, Map34 M, Map34 Minv,
-                            int sx, int sy, int sz, int tx, int ty, int tz,
-                            int wx, int wy, int wz) {
-  const int n_out = tx * ty * tz;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_out) return;
-  const int vk = t % tz;
-  const int r = t / tz;
-  const int vj = r % ty;
-  const int vi = r / ty;
+__global__ void __launch_bounds__(kLanesZ * kRowsY)
+    push_kernel(const float* __restrict__ vals, float* __restrict__ out,
+                Map34 M, Map34 Minv, float rx, float ry, float rz, int sx,
+                int sy, int sz, int tx, int ty, int tz, int wx, int wy,
+                int wz) {
+  const int vk = blockIdx.x * kLanesZ + threadIdx.x;
+  const int vj = blockIdx.y * kRowsY + threadIdx.y;
+  const int vi = blockIdx.z;
+  if (vk >= tz || vj >= ty) return;
   float c[3];
   map_point(Minv, (float)vi, (float)vj, (float)vk, c);
-  int anc[3];
+  const float r[3] = {rx, ry, rz};
+  const int w[3] = {wx, wy, wz}, s[3] = {sx, sy, sz};
+  int lo[3], hi[3];
 #pragma unroll
-  for (int d = 0; d < 3; ++d)  // clamp before the cast: far anchors have no
-    anc[d] = (int)fminf(fmaxf(floorf(c[d] + 0.5f), -1048576.0f), 1048576.0f);
+  for (int d = 0; d < 3; ++d) {
+    const int anc = clamp_far(floorf(c[d] + 0.5f));
+    lo[d] = max(max(clamp_far(ceilf(c[d] - r[d])), anc - w[d]), 0);
+    hi[d] = min(min(clamp_far(floorf(c[d] + r[d])), anc + w[d]), s[d] - 1);
+  }
   const int v[3] = {vi, vj, vk};
+  // a weighted source of an interior target lies inside the FOV
+  const bool edge = (vi < 1) | (vi > tx - 2) | (vj < 1) | (vj > ty - 2) |
+                    (vk < 1) | (vk > tz - 2);
   float acc = 0.0f;
-  for (int da = -wx; da <= wx; ++da) {
-    const int oa = anc[0] + da;
-    if (oa < 0 || oa >= sx) continue;
-    for (int db = -wy; db <= wy; ++db) {
-      const int ob = anc[1] + db;
-      if (ob < 0 || ob >= sy) continue;
-      for (int dc = -wz; dc <= wz; ++dc) {
-        const int oc = anc[2] + dc;
-        if (oc < 0 || oc >= sz) continue;
+  for (int oa = lo[0]; oa <= hi[0]; ++oa) {
+    float pa[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) pa[d] = __fmul_rn(M.m[4 * d], (float)oa);
+    for (int ob = lo[1]; ob <= hi[1]; ++ob) {
+      float s01[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        s01[d] = __fadd_rn(pa[d], __fmul_rn(M.m[4 * d + 1], (float)ob));
+      const float* row = vals + (oa * sy + ob) * sz;
+      for (int oc = lo[2]; oc <= hi[2]; ++oc) {
         float g[3];
-        map_point(M, (float)oa, (float)ob, (float)oc, g);
-        if (!in_fov(g, tx, ty, tz)) continue;
-        float w = 1.0f;
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          g[d] = __fadd_rn(__fadd_rn(s01[d], __fmul_rn(M.m[4 * d + 2],
+                                                       (float)oc)),
+                           M.m[4 * d + 3]);
+        if (edge && !in_fov(g, tx, ty, tz)) continue;
+        float wt = 1.0f;
 #pragma unroll
         for (int d = 0; d < 3; ++d) {
           if (ORDER == 0) {
-            const int nd = (int)floorf(g[d] + 0.5f);
-            if (nd != v[d]) w = 0.0f;
+            if ((int)floorf(g[d] + 0.5f) != v[d]) wt = 0.0f;
           } else {
             const float fl = floorf(g[d]);
             const float f = __fsub_rn(g[d], fl);
             const int ai = (int)fl;
-            const float wd = (v[d] == ai) ? __fsub_rn(1.0f, f)
-                             : (v[d] == ai + 1) ? f : 0.0f;
-            w = __fmul_rn(w, wd);
+            const float wd = (v[d] == ai)       ? __fsub_rn(1.0f, f)
+                             : (v[d] == ai + 1) ? f
+                                                : 0.0f;
+            wt = __fmul_rn(wt, wd);
           }
         }
-        if (w != 0.0f)
-          acc = madd(acc, w, __ldg(vals + (oa * sy + ob) * sz + oc));
+        // w * vals[o] with w = 0 adds nothing, as in the plain version
+        acc = madd(acc, wt, __ldg(row + oc));
       }
     }
   }
-  out[t] = acc;
+  out[((long long)vi * ty + vj) * tz + vk] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -296,34 +400,41 @@ extern "C" {
 int unires_pull(const float* vol, float* out, const float* m, int nx, int ny,
                 int nz, int ox, int oy, int oz, int order, void* stream) {
   const Map34 M = load_map(m);
-  const long long n = (long long)ox * oy * oz;
-  if (n == 0) return (int)cudaGetLastError();
+  if ((long long)ox * oy * oz == 0) return (int)cudaGetLastError();
+  const dim3 block(kLanesZ, kRowsY);
+  const dim3 grid((unsigned)((oz + kLanesZ - 1) / kLanesZ),
+                  (unsigned)((oy + kRowsY - 1) / kRowsY),
+                  (unsigned)((ox + kRowsX - 1) / kRowsX));
   cudaStream_t s = (cudaStream_t)stream;
   if (order == 0)
-    pull_kernel<0><<<n_blocks(n), kThreads, 0, s>>>(vol, out, M, nx, ny, nz,
-                                                    ox, oy, oz);
+    pull_kernel<0><<<grid, block, 0, s>>>(vol, out, M, nx, ny, nz, ox, oy, oz);
   else
-    pull_kernel<1><<<n_blocks(n), kThreads, 0, s>>>(vol, out, M, nx, ny, nz,
-                                                    ox, oy, oz);
+    pull_kernel<1><<<grid, block, 0, s>>>(vol, out, M, nx, ny, nz, ox, oy, oz);
   return (int)cudaGetLastError();
 }
 
 // vals (sx, sy, sz) on pull's output grid -> out (tx, ty, tz) on pull's
-// input grid; m, minv: host pointers to 12 floats; (wx, wy, wz): window.
+// input grid; m, minv: host pointers to 12 floats; reach: host pointer to 3
+// floats (ops/resample.py: push_reach); (wx, wy, wz): window.
 int unires_push(const float* vals, float* out, const float* m,
-                const float* minv, int sx, int sy, int sz, int tx, int ty,
-                int tz, int wx, int wy, int wz, int order, void* stream) {
+                const float* minv, const float* reach, int sx, int sy, int sz,
+                int tx, int ty, int tz, int wx, int wy, int wz, int order,
+                void* stream) {
   const Map34 M = load_map(m);
   const Map34 Minv = load_map(minv);
-  const long long n = (long long)tx * ty * tz;
-  if (n == 0) return (int)cudaGetLastError();
+  if ((long long)tx * ty * tz == 0) return (int)cudaGetLastError();
+  const dim3 block(kLanesZ, kRowsY);
+  const dim3 grid((unsigned)((tz + kLanesZ - 1) / kLanesZ),
+                  (unsigned)((ty + kRowsY - 1) / kRowsY), (unsigned)tx);
   cudaStream_t s = (cudaStream_t)stream;
   if (order == 0)
-    push_kernel<0><<<n_blocks(n), kThreads, 0, s>>>(
-        vals, out, M, Minv, sx, sy, sz, tx, ty, tz, wx, wy, wz);
+    push_kernel<0><<<grid, block, 0, s>>>(vals, out, M, Minv, reach[0],
+                                          reach[1], reach[2], sx, sy, sz, tx,
+                                          ty, tz, wx, wy, wz);
   else
-    push_kernel<1><<<n_blocks(n), kThreads, 0, s>>>(
-        vals, out, M, Minv, sx, sy, sz, tx, ty, tz, wx, wy, wz);
+    push_kernel<1><<<grid, block, 0, s>>>(vals, out, M, Minv, reach[0],
+                                          reach[1], reach[2], sx, sy, sz, tx,
+                                          ty, tz, wx, wy, wz);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,7 @@ _I = ctypes.c_int
 # so that ctypes never truncates a 64-bit address)
 _SIGNATURES = {
     "unires_pull": [_VP, _VP, _VP] + [_I] * 7 + [_VP],
-    "unires_push": [_VP, _VP, _VP, _VP] + [_I] * 10 + [_VP],
+    "unires_push": [_VP] * 5 + [_I] * 10 + [_VP],
     "unires_pull_grad": [_VP, _VP, _VP] + [_I] * 6 + [_VP],
 }
 

@@ -18,8 +18,13 @@ Each wrapper counts its kernel launches in ``pull.launches`` /
 Maps: ``M`` is the (3, 4) float32 map from output voxel to input voxel, held
 on the host (numpy) — it is 12 numbers that reach the kernel as launch
 arguments, the CUDA counterpart of the Pallas kernels' scalar prefetch.
+
+push visits, for each target, only the sources within
+:func:`push_reach` of ``Minv . v`` (on the host, from the maps and shapes).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -62,6 +67,50 @@ def push_window(M) -> tuple:
     Minv = np.linalg.inv(M4)
     L = np.abs(Minv[:3, :3]).sum(axis=1) * 1.25
     return tuple(int(np.floor(Ld + 0.5)) for Ld in L)
+
+
+def push_reach(M, Minv, order, src_dim, tgt_dim) -> np.ndarray:
+    """Per-axis reach of the push kernel's candidates: every source o that
+    weighs on target v satisfies |o_d - c_d| <= reach_d, with c = Minv . v as
+    the kernel computes it in float32 (3 floats, a host array).
+
+    A weight needs |M o + m - v|_inf < h (h = 1 trilinear, 1/2 nearest), so
+    |o - A^-1 (v - m)|_d <= h * R_d with R_d the L1 norm of row d of the
+    inverse of M's linear part A. The margins cover float32 rounding: of the
+    sample point g (relative 2^-20 of its magnitude), of the kernel's c
+    against the exact inverse (the given ``Minv`` against A^-1, and 2^-20 of
+    c's magnitude), and 2^-10 absolute for the kernel's own ``c -+ reach``.
+    ``src_dim`` is the source grid (pull's output), ``tgt_dim`` the target
+    grid (pull's input).
+    """
+    M64 = _as_map(M).astype(np.float64)
+    A, m = M64[:, :3], M64[:, 3]
+    Ainv = np.linalg.inv(A)
+    exact = np.concatenate([Ainv, (-Ainv @ m)[:, None]], axis=1)
+    tgt = np.asarray(tgt_dim, np.float64)
+    mag_g = float((np.abs(A) @ np.asarray(src_dim, np.float64)
+                   + np.abs(m)).max())
+    Mi = _as_map(Minv).astype(np.float64)
+    dev = np.abs(Mi - exact)
+    mag_c = np.abs(Mi[:, :3]) @ tgt + np.abs(Mi[:, 3])
+    h = 1.0 if order else 0.5
+    reach = (h * np.abs(Ainv).sum(axis=1) * (1.0 + 2.0 ** -20 * mag_g)
+             + dev[:, :3] @ tgt + dev[:, 3] + 2.0 ** -20 * mag_c + 2.0 ** -10)
+    return np.ascontiguousarray(reach, np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _push_plan(m: bytes, minv: bytes | None, order: int, src_dim: tuple,
+               tgt_dim: tuple) -> tuple:
+    """(Minv, window, reach) of a push, from the maps' bytes. Cached: a
+    pose's plan is computed once however many pushes run at it (11 per
+    misaligned fit iteration). The arrays are shared: callers only read
+    them."""
+    M = np.frombuffer(m, np.float32).reshape(3, 4)
+    Minv = (inverse_map(M) if minv is None
+            else np.frombuffer(minv, np.float32).reshape(3, 4))
+    return (Minv, push_window(M),
+            push_reach(M, Minv, order, src_dim, tgt_dim))
 
 
 # ---------------------------------------------------------------------------
@@ -288,21 +337,23 @@ def push(vals: torch.Tensor, M, vol_dim, order: int = 1,
 
     ``M`` is the SAME (3, 4) map given to pull (source voxel -> target
     voxel). ``Minv`` (its inverse) is derived from ``M`` on the host when
-    not given; the candidate window (:func:`push_window`) always is.
+    not given; the candidate window (:func:`push_window`) and reach
+    (:func:`push_reach`) always are, once per map (:func:`_push_plan`).
     """
     order = _check_order(order)
     vol_dim = tuple(int(d) for d in vol_dim)
     if _on_cpu(vals, "push"):
         return push_plain(vals, M, vol_dim, order, Minv)
     M = _as_map(M)
-    Minv = inverse_map(M) if Minv is None else _as_map(Minv)
-    window = push_window(M)
+    Minv, window, reach = _push_plan(
+        M.tobytes(), None if Minv is None else _as_map(Minv).tobytes(), order,
+        tuple(vals.shape), vol_dim)
     _check_size(vals.shape, vol_dim)
     out = torch.empty(vol_dim, dtype=torch.float32, device=vals.device)
     with torch.cuda.device(vals.device):
         err = kernels.get().unires_push(
             vals.data_ptr(), out.data_ptr(), M.ctypes.data, Minv.ctypes.data,
-            *vals.shape, *vol_dim, *window, order,
+            reach.ctypes.data, *vals.shape, *vol_dim, *window, order,
             torch.cuda.current_stream().cuda_stream)
     check(err, "push")
     push.launches += 1
