@@ -12,8 +12,9 @@ Phases, each printing its lines:
    plain PyTorch versions on the same CUDA tensors, at the shapes of the
    bench workload (1 mm 181x217x181 recon grid, one 4 mm observation, a
    ~1 degree / 1 mm pose; pull also as the init reslice, at order 0 and on
-   a 45 degree x 3 map; pull_grad also on a 1 mm co-registration level);
-   pull and push must equal their plain versions bitwise. Per case: device
+   a 45 degree x 3 map; pull_grad also on a 1 mm co-registration level, on
+   the 45 degree x 3 map and on the 2 mm level of an atlas alignment);
+   every kernel must equal its plain version bitwise. Per case: device
    ms (each call timed alone, L2 flushed before it) and host ms per call,
    GB/s, the bound (bytes or float32 operations at the H100's peak rates)
    and the kernel's share of it, and the one PyTorch call that computes
@@ -34,16 +35,31 @@ Phases, each printing its lines:
    PSNR and sr_vs_trilinear (as bench.py), each channel's residual pose
    error against the simulated rigids before and after coreg and after the
    fit, the fitted scales, launches, host syncs per iteration, peak memory.
+6. Init options at full width: the same misaligned phantom placed in the
+   atlas frame and displaced by a known rigid transform, through
+   ``unires_torch.init`` with ``common_output`` (co-registration, atlas
+   alignment, crop to the atlas box, pow 256) and a label on channel 0,
+   then 4 fit iterations. Counters reset before and read after. Requires
+   the atlas transform recovered, the output grid equal to the atlas box's,
+   a finite falling objective and a label volume on the output grid with
+   the input's values. Then a small CT-flagged observation with a label
+   through ``do_res_origin`` and ``force_inplane_res``, card against CPU.
+7. The command line on the card: two NIfTI files in a temporary directory
+   through ``unires_torch.cli.run([... "--common_output"])``, the outputs
+   read back and checked for shape and affine.
 
-The line before the last holds the kernels' JSON record (launches from the
-misaligned run), the one before it the card's name and power limit; the
-last line is ``{"ok": true, "device": {...}}``. Any failure raises: nothing
-is caught.
+The line before the last holds the kernels' JSON record (``launches`` from
+the misaligned run, ``launches_atlas`` from phase 6), the one before it the
+card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``. Any failure raises: nothing is caught.
 """
+import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,7 +69,8 @@ import torch.nn.functional as F
 import unires_torch
 import unires_torch.pipeline.run as run_mod
 from unires_torch.geometry import (affine_basis, affine_diag,
-                                   affine_matrix_classic, expm, rigid_log)
+                                   affine_matrix_classic, bb_atlas, ceil_pow,
+                                   expm, rigid_log, voxel_size)
 from unires_torch.models.forward import obs_dyn_args, proj_apply
 from unires_torch.models.proj_op import proj_info
 from unires_torch.ops import cuda_build
@@ -63,12 +80,13 @@ from unires_torch.ops.resample import (_as_map, _fov_mask, _sample_coords,
                                        push_plain)
 from unires_torch.pipeline.convert import convert_state
 from unires_torch.pipeline.fit import fit as fit_solver
+from unires_torch.pipeline.nifti import load as nifti_load
+from unires_torch.pipeline.nifti import save as nifti_save
 from unires_torch.pipeline.run import write_data
 from unires_torch.utils.host import to_host
 from unires_torch.utils.phantoms import brain_phantom
 
 DIM_Y = (181, 217, 181)
-KERNEL_TOL = 1e-5  # max abs error <= KERNEL_TOL * max|input| (f32 rounding)
 # a yardstick against the plain version: max abs error <= YARDSTICK_TOL *
 # max|plain|. grid_sample maps each point to [-1, 1] and back, which moves
 # it by a few float32 ulps of the coordinate (1.5e-5 at 217).
@@ -91,6 +109,15 @@ SLICE_TOL = 1e-4  # card vs CPU objective traces, relative (f32 sums)
 GN_SLICE_TOL = 1e-3
 COREG_TOL = (0.1, 2e-3)  # card vs CPU coreg mats: mm, rotation entries
 SMALL_DIM = (48, 56, 48)  # centre crop of the phantom for the small GN slice
+# the phantom's placement in the atlas frame (1 mm, utils/phantoms.py) and
+# the known "scanner" displacement of phase 6 (tests/test_atlas_geometry.py)
+MAT_MNI = np.eye(4)
+MAT_MNI[:3, 3] = [-90.0, -126.0, -72.0]
+T_SYNTH = affine_matrix_classic([8.0, -5.0, 4.0, 0.04, -0.03, 0.02])
+# residual of a recovered atlas placement: |t| mm + 90 mm * angle, as
+# tests/test_atlas_geometry.py:41-54
+ATLAS_TOL_MM = 6.0
+INIT_TOL = 1e-5  # card vs CPU init volumes, relative to max|input|
 SOURCE = "unires_torch/csrc/resample.cu"
 # the Pallas kernels each CUDA kernel replaces (shear variant first; the
 # JAX fit runs it): pull also :219, push also :673, pull_grad also :328
@@ -178,7 +205,7 @@ def _host_ms(fn, reps=7):
     return statistics.median(times)
 
 
-def _max_err(got, want, scale, name, tol=KERNEL_TOL):
+def _max_err(got, want, scale, name, tol=0.0):
     err = float((got - want).abs().max())
     require(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
     require(err <= tol * scale, f"{name}: max abs err {err} > {tol} * {scale}")
@@ -291,6 +318,18 @@ def kernel_cases(device="cuda"):
     vol_x = torch.from_numpy(rng.random(dim_x, dtype=np.float32)).to(device)
     vals = torch.from_numpy(rng.random(po.dim_yx, dtype=np.float32)).to(device)
     vals_l = torch.from_numpy(rng.random(dim_l, dtype=np.float32)).to(device)
+    # the 2 mm level of an atlas alignment: the image's level (the mover,
+    # 91 x 109 x 91) sampled on the bundled template's grid (91 x 109 x 109)
+    # at a rigid + 3 % scale transform about the template's centre
+    dim_a, dim_m = (91, 109, 109), (91, 109, 91)
+    mat_a, mat_m = affine_diag([2.0] * 3), affine_diag([2.0] * 3)
+    mat_a[:3, 3], mat_m[:3, 3] = [-90.0, -126.0, -90.0], MAT_MNI[:3, 3]
+    lin = 1.03 * affine_matrix_classic([0, 0, 0, 0.03, -0.02, 0.025])[:3, :3]
+    wc = (mat_a @ np.r_[(np.asarray(dim_a) - 1) / 2.0, 1.0])[:3]
+    A = np.eye(4)
+    A[:3, :3], A[:3, 3] = lin, wc - lin @ wc + [3.0, -2.0, 1.5]
+    M_atlas = affine_to_M(np.linalg.solve(mat_m, A @ mat_a))
+    vol_m = torch.from_numpy(rng.random(dim_m, dtype=np.float32)).to(device)
     return [
         ("pull", "fit", vol_y, M, po.dim_yx, {}),
         ("pull", "init", vol_x, M_init, DIM_Y, {}),
@@ -301,6 +340,8 @@ def kernel_cases(device="cuda"):
         ("push", "large", vals_l, M_large, DIM_Y, {}),
         ("pull_grad", "fit", vol_y, M, po.dim_yx, {}),
         ("pull_grad", "coreg", vol_y, M_coreg, DIM_Y, {}),
+        ("pull_grad", "large", vol_y, M_large, dim_l, {}),
+        ("pull_grad", "atlas", vol_m, M_atlas, dim_a, {}),
     ]
 
 
@@ -321,9 +362,9 @@ def phase_kernels(device="cuda"):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         label = f"{name}/{case}"
-        # pull and push repeat their plain version's roundings: exact
-        err = _max_err(got, want, float(inp.abs().max()), label,
-                       KERNEL_TOL if name == "pull_grad" else 0.0)
+        # every kernel repeats its plain version's roundings: exact
+        err = _max_err(got, want, float(inp.abs().max()), label)
+        require(float(want.abs().max()) > 0.0, f"{label}: plain result is 0")
         ms, plain_ms, host_ms = _time_ms(kern), _time_ms(plain), _host_ms(kern)
         order = kw.get("order", 1)
         bnd, bound_by = bound_ms(name, inp, out_dim, order)
@@ -476,11 +517,18 @@ def _check_fit(dat_y, y, obj, jtv, n_iter, max_iter):
             f"objective did not fall: {obj[0, 0]} -> {obj[-1, 0]}")
 
 
+@functools.lru_cache(maxsize=None)
+def _full_phantom(contrast):
+    """The bench's 181x217x181 brain phantom. Cached: callers only read it."""
+    return brain_phantom(dim=DIM_Y, contrast=contrast, amplitude=2000.0,
+                         seed=0)
+
+
 def _phantom(contrast, dim):
-    """The bench's 181x217x181 brain phantom, or its centre crop of ``dim``
-    (the phantom lives in an MNI-like frame: a smaller grid of its own would
-    hold only a corner of the head)."""
-    vol = brain_phantom(dim=DIM_Y, contrast=contrast, amplitude=2000.0, seed=0)
+    """The bench's brain phantom, or its centre crop of ``dim`` (the phantom
+    lives in an MNI-like frame: a smaller grid of its own would hold only a
+    corner of the head)."""
+    vol = _full_phantom(contrast)
     lo = [(n - d) // 2 for n, d in zip(DIM_Y, dim)]
     return np.ascontiguousarray(
         vol[tuple(slice(a, a + d) for a, d in zip(lo, dim))])
@@ -542,6 +590,24 @@ def _pose_error(E, dim):
     return ang, float(disp.max())
 
 
+def _timed(name, record):
+    """Wrap ``run_mod.<name>`` (a registration entry ``init`` calls) so that
+    its seconds and pull_grad launches, one per NMI evaluation, land in
+    ``record``. Returns the original, to be put back."""
+    fn = getattr(run_mod, name)
+
+    def timed(*args, **kw):
+        n0, c0 = pull_grad.launches, time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        record.update(s=time.perf_counter() - c0,
+                      pull_grad=pull_grad.launches - n0)
+        return out
+
+    setattr(run_mod, name, timed)
+    return fn
+
+
 def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
     """The bench.py workload: coreg + unified rigid + scaling at full width."""
     t0 = time.perf_counter()
@@ -549,17 +615,7 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
     print(f"[bench] phantom + degrade {time.perf_counter() - t0:.2f} s")
 
     coreg = {}
-    affine_align = run_mod.affine_align
-
-    def timed_align(*args, **kw):  # coreg's seconds and pull_grad launches
-        n0, c0 = pull_grad.launches, time.perf_counter()
-        out = affine_align(*args, **kw)
-        torch.cuda.synchronize()
-        coreg.update(s=time.perf_counter() - c0,
-                     pull_grad=pull_grad.launches - n0)
-        return out
-
-    run_mod.affine_align = timed_align
+    affine_align = _timed("affine_align", coreg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     pull.launches = push.launches = pull_grad.launches = 0
@@ -617,6 +673,180 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
     return launches
 
 
+def _residual(mat, true):
+    """(|t| mm, angle rad, isotropic scale) of the world transform taking
+    the true placement ``true`` of a volume to its recovered one ``mat``."""
+    err = mat @ np.linalg.inv(true)
+    scale = float(np.cbrt(np.linalg.det(err[:3, :3])))
+    ang = float(np.arccos(np.clip((np.trace(err[:3, :3] / scale) - 1.0) / 2.0,
+                                  -1, 1)))
+    return float(np.linalg.norm(err[:3, 3])), ang, scale
+
+
+def _atlas_grid(vx):
+    """(mat, dim) of the common output grid at voxel size ``vx``: the atlas
+    'brain' box, padded to the smaller of 2 * 2^k and 3 * 2^k up to 256 and
+    centred (tests/test_atlas_geometry.py:56-83)."""
+    mat_mu, dim_mm = bb_atlas(fov="brain")
+    dim = np.floor(dim_mm / vx)
+    ndim = np.minimum(ceil_pow(dim, p=2.0, l=2.0, mx=256),
+                      ceil_pow(dim, p=2.0, l=3.0, mx=256))
+    mat = mat_mu @ affine_diag(vx) @ affine_matrix_classic(
+        -np.round((ndim - dim) / 2.0))
+    return mat, tuple(int(d) for d in ndim)
+
+
+def _label_of(x):
+    """A label volume of an observation: 0 for the background, 1 to 4 for
+    the intensity quartiles of the foreground."""
+    edges = np.quantile(x[x > 150.0], [0.25, 0.5, 0.75])
+    return np.digitize(x, np.r_[150.0, edges]).astype(np.float32)
+
+
+def phase_atlas(tmp, device="cuda", dim=DIM_Y, max_iter=4, vx=1.0):
+    """common_output + a label at full width: coreg, atlas alignment, crop,
+    pow 256, then ``max_iter`` iterations with rigid and scaling."""
+    gts, rigids, chans = _bench_workload(device, dim, misaligned=True)
+    # headers: the phantom's atlas-frame placement, displaced by T_SYNTH
+    for ch in chans:
+        ch[1] = T_SYNTH @ MAT_MNI @ ch[1]
+    lab = _label_of(chans[0][0])
+    pth = os.path.join(tmp, "label.nii.gz")
+    nifti_save(lab, pth, affine=chans[0][1])
+
+    rec = {}
+    atlas_align = _timed("atlas_align", rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pull.launches = push.launches = pull_grad.launches = 0
+    t0 = time.perf_counter()
+    x, y, sett = unires_torch.init(chans, unires_torch.Settings(
+        device=device, vx=vx, do_print=1, write_out=False, tolerance=0,
+        max_iter=max_iter, sched_num=3, reg_scl=4.0, do_coreg=True,
+        unified_rigid=True, scaling=True, common_output=True,
+        label=(pth, (0, 0))))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    run_mod.atlas_align = atlas_align
+    n_init = (pull.launches, pull_grad.launches)
+    y, R, jtv, obj, n_iter = fit_solver(x, y, sett)
+    dat_y, _, _, _ = write_data(x, y, sett, jtv=jtv)
+    torch.cuda.synchronize()
+    launches = {"pull": pull.launches, "push": push.launches,
+                "pull_grad": pull_grad.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    require(rec["pull_grad"] > 0, "atlas alignment launched no pull_grad")
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel of the path never launched: {launches}")
+    _check_fit(dat_y, y, obj, jtv, n_iter, max_iter)
+    want_mat, want_dim = _atlas_grid(voxel_size(y[0].mat))
+    require(tuple(y[0].dim) == want_dim, f"grid {y[0].dim} != {want_dim}")
+    require(np.allclose(y[0].mat, want_mat, atol=1e-6),
+            f"output affine {y[0].mat} != {want_mat}")
+    label = y[0].label
+    require(tuple(label.shape) == want_dim, f"label shape {label.shape}")
+    vals = set(torch.unique(label).tolist())
+    require(vals <= set(np.unique(lab).tolist()) and len(vals) > 1,
+            f"label values {vals}")
+    print(f"[atlas] dims {tuple(y[0].dim)} x 3 | init {t_init:.3f} s (atlas "
+          f"align {rec['s']:.3f} s, {rec['pull_grad']} NMI evaluations) | "
+          f"launches in init: pull {n_init[0]}, pull_grad {n_init[1]}; all: "
+          f"{launches} | nll {obj[:, 0].tolist()} | label values "
+          f"{sorted(vals)} | peak mem {peak / 2 ** 30:.3f} GiB")
+    # each channel's recovered placement against its true one
+    for c, o in enumerate(xc[0] for xc in x):
+        true = MAT_MNI @ rigids[c] @ np.linalg.solve(T_SYNTH @ MAT_MNI,
+                                                     chans[c][1])
+        t_mm, ang, scale = _residual(o.mat, true)
+        before = _residual(chans[c][1], true)
+        print(f"[atlas] channel {c} placement residual (mm, rad): header "
+              f"{before[0]:.3f}, {before[1]:.5f} | after init {t_mm:.3f}, "
+              f"{ang:.5f}, scale {scale:.4f} | |t| + 90 mm * angle "
+              f"{t_mm + 90.0 * ang:.3f}")
+        require(t_mm + 90.0 * ang < ATLAS_TOL_MM,
+                f"channel {c}: atlas placement off by {t_mm} mm, {ang} rad")
+    return launches
+
+
+def phase_ct_inplane(tmp, devices=("cuda", "cpu")):
+    """do_res_origin on a CT-flagged observation and force_inplane_res, with
+    a label, on the card against the CPU."""
+    rng = np.random.default_rng(5)
+    vol = _phantom("t1", (96, 112, 96))[::1, ::1, ::3] - 500.0
+    vol = np.ascontiguousarray(vol + 20.0 * rng.standard_normal(
+        vol.shape).astype(np.float32))
+    mat = affine_matrix_classic([40.0, -25.0, 10.0, 0.06, -0.04, 0.05]) \
+        @ affine_diag([0.5, 0.5, 3.0])
+    pth = os.path.join(tmp, "ct_label.nii.gz")
+    nifti_save(_label_of(vol + 500.0), pth, affine=mat)
+    out = {}
+    for dev in devices:
+        n0 = pull.launches
+        x, y, sett = unires_torch.init([[vol, mat]], unires_torch.Settings(
+            device=dev, vx=1.0, ct=True, do_res_origin=True,
+            force_inplane_res=True, label=(pth, (0, 0)), do_print=0,
+            write_out=False, max_iter=1))
+        out[dev] = (x[0][0], y[0], pull.launches - n0)
+    (xg, yg, ng), (xc, yc, nc) = out[devices[0]], out[devices[1]]
+    require(ng > 0 and nc == 0, f"pull launches card {ng}, cpu {nc}")
+    require(xg.dim == xc.dim and tuple(yg.dim) == tuple(yc.dim)
+            and xg.dim != vol.shape, f"dims {xg.dim} {xc.dim}")
+    require(np.array_equal(xg.mat, xc.mat) and np.array_equal(yg.mat, yc.mat),
+            "card and CPU affines differ")
+    scale = float(np.abs(vol).max())
+    errs = [_max_err(a.cpu(), b, scale, "ct/inplane", INIT_TOL)
+            for a, b in ((xg.dat, xc.dat), (yg.dat, yc.dat))]
+    lab_diff = [float((a.cpu() != b).float().mean())
+                for a, b in ((xg.label[0], xc.label[0]), (yg.label, yc.label))]
+    # a label may flip where two pulled indicators tie to float32 rounding
+    require(max(lab_diff) < 1e-3, f"labels differ: {lab_diff}")
+    print(f"[ct] {vol.shape} -> reset origin + in-plane {xg.dim} -> y "
+          f"{tuple(yg.dim)} | card vs cpu max abs err x {errs[0]:.3e}, y "
+          f"{errs[1]:.3e} (scale {scale:.0f}) | label mismatch share "
+          f"{lab_diff} | pull launches {ng}")
+
+
+def phase_cli(tmp, device=None):
+    """The command line on the card (its default device): two 2 mm channels,
+    displaced, through ``--common_output``; outputs read back."""
+    # imported here: scripts/cuda_kernel_times.py loads this file against
+    # older trees of the port, which have no command line
+    from unires_torch.cli import run as cli_run
+
+    rng = np.random.default_rng(6)
+    mat = T_SYNTH @ MAT_MNI @ affine_diag([2.0, 2.0, 2.0])
+    paths = []
+    for c in ("t1", "t2"):
+        vol = _full_phantom(c)[::2, ::2, ::2]
+        vol = vol + 40.0 * rng.standard_normal(vol.shape).astype(np.float32)
+        paths.append(os.path.join(tmp, f"sub_{c}.nii.gz"))
+        nifti_save(vol.astype(np.float32), paths[-1], affine=mat)
+    out = os.path.join(tmp, "out")
+    pull.launches = pull_grad.launches = 0
+    t0 = time.perf_counter()
+    cli_run([*paths, "--vx", "2.0", "--common_output", "--dir_out", out,
+             "--print_info", "0", "--tolerance", "1e-2", "--sched", "0",
+             *(["--device", device] if device else [])])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    require(pull.launches > 0 and pull_grad.launches > 0,
+            "the command line launched no kernel")
+    want_mat, want_dim = _atlas_grid(np.array([2.0, 2.0, 2.0]))
+    names = sorted(os.listdir(out))
+    require(names == ["u_sub_t1.nii.gz", "u_sub_t2.nii.gz"], f"wrote {names}")
+    for nam in names:
+        dat, hdr = nifti_load(os.path.join(out, nam))
+        require(dat.shape == want_dim, f"{nam}: shape {dat.shape}")
+        require(np.allclose(hdr.affine, want_mat, atol=1e-4),
+                f"{nam}: affine {hdr.affine}")
+        require(bool(np.isfinite(dat).all()) and float(dat.max()) > 0,
+                f"{nam}: empty or non-finite")
+    print(f"[cli] unires-torch {len(paths)} x (91, 109, 91) --common_output "
+          f"--vx 2: {secs:.2f} s | outputs {names} {want_dim} | launches "
+          f"pull {pull.launches}, pull_grad {pull_grad.launches}")
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -625,9 +855,14 @@ def main():
     phase_small_misaligned()
     phase_slice()
     launches = phase_misaligned()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_atlas = phase_atlas(tmp)
+        phase_ct_inplane(tmp)
+        phase_cli(tmp)
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], launches=launches[name],
-                    **rec[name]) for name in ("pull", "push", "pull_grad")]
+                    launches_atlas=launches_atlas[name], **rec[name])
+               for name in ("pull", "push", "pull_grad")]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

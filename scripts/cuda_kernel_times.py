@@ -1,4 +1,5 @@
-"""Time the pull and push kernels of a checkout of this repository on one card.
+"""Time the pull, push and pull_grad kernels of a checkout of this repository
+on one card.
 
     python3 scripts/cuda_kernel_times.py [--tree PATH] [--label NAME]
 
@@ -7,8 +8,8 @@ the kernels of two commits (for example an unpacked ``git archive`` of the
 parent) are timed by the same code in one call. The cases
 (``kernel_cases``) and the timing (``_time_ms``: CUDA events around each
 call, L2 flushed before it; ``_host_ms``: synchronised calls as a caller
-sees them) are this checkout's ``chip_smoke.py``'s. For each pull and push
-case it prints the max abs difference between kernel and plain version
+sees them) are this checkout's ``chip_smoke.py``'s. For each case it
+prints the max abs difference between kernel and plain version
 (must be 0), the kernel's device ms per call three times, and its host ms.
 """
 import argparse
@@ -41,10 +42,9 @@ def main():
                          text=True, check=True).stdout.strip()
     print(f"[times {args.label}] {smi} | unires_torch from "
           f"{Path(tr.__file__).parents[2]}")
-    funcs = {"pull": (tr.pull, tr.pull_plain), "push": (tr.push, tr.push_plain)}
+    funcs = {"pull": (tr.pull, tr.pull_plain), "push": (tr.push, tr.push_plain),
+             "pull_grad": (tr.pull_grad, tr.pull_grad_plain)}
     for name, case, inp, Mc, out_dim, kw in cs.kernel_cases("cuda"):
-        if name not in funcs:
-            continue
         kern_fn, plain_fn = funcs[name]
         kern = lambda: kern_fn(inp, Mc, out_dim, **kw)  # noqa: E731
         err = float((kern() - plain_fn(inp, Mc, out_dim, **kw)).abs().max())

@@ -262,11 +262,8 @@ def test_fit_continues_jax_mid_fit_state(misaligned):
     np.testing.assert_allclose(_qs(xt)[:, 3:], q2[:, 3:], atol=1e-5)
 
 
-UNPORTED = [dict(do_atlas_align=True), dict(do_res_origin=True), dict(label=("l.nii.gz", (0, 0))),
-            dict(force_inplane_res=True), dict(checkpoint_every=5),
-            dict(resume=True), dict(shard="batch"), dict(profile_dir="p"),
-            dict(common_output=True), dict(plot_conv=True),
-            dict(show_jtv=True)]
+UNPORTED = [dict(checkpoint_every=5), dict(resume=True), dict(shard="batch"),
+            dict(profile_dir="p"), dict(plot_conv=True), dict(show_jtv=True)]
 
 
 @pytest.mark.parametrize("extra", UNPORTED, ids=lambda d: next(iter(d)))

@@ -321,6 +321,64 @@ def test_push_narrowed_candidates_equal_plain_bitwise(name, mat, out_dim,
     assert torch.equal(got, want)
 
 
+# --- the pull_grad kernel's arithmetic ---------------------------------------
+# The kernel rounds the 12 pair products wb wc, wa wc, wa wb once each and
+# reuses them with the corner's sign, reads 0 for a corner outside the volume
+# (adding w * 0) and sums the corners in (a, b, c) order. A product with +-1
+# is exact, so this must give pull_grad_plain's bits.
+
+def _pull_grad_shared_products(vol, M, out_dim):
+    """pull_grad as the kernel computes it, in torch on the CPU."""
+    M = tr._as_map(M)
+    in_dim = tuple(vol.shape)
+    g = tr._sample_coords(M, out_dim, "cpu")
+    fl = [torch.floor(g[d]) for d in range(3)]
+    f = [g[d] - fl[d] for d in range(3)]
+    w = [(1.0 - f[d], f[d]) for d in range(3)]
+    pbc = [[w[1][s] * w[2][t] for t in (0, 1)] for s in (0, 1)]
+    pac = [[w[0][s] * w[2][t] for t in (0, 1)] for s in (0, 1)]
+    pab = [[w[0][s] * w[1][t] for t in (0, 1)] for s in (0, 1)]
+    i0 = [t.clamp(-2.0 ** 20, 2.0 ** 20).to(torch.int64) for t in fl]
+    flat = vol.reshape(-1)
+    grads = [torch.zeros(out_dim) for _ in range(3)]
+    for a, b, c in np.ndindex(2, 2, 2):
+        idx = [i0[0] + a, i0[1] + b, i0[2] + c]
+        ok = None
+        for d in range(3):
+            okd = (idx[d] >= 0) & (idx[d] < in_dim[d])
+            ok = okd if ok is None else ok & okd
+        ic = [idx[d].clamp(0, in_dim[d] - 1) for d in range(3)]
+        val = torch.where(ok, torch.take(
+            flat, (ic[0] * in_dim[1] + ic[1]) * in_dim[2] + ic[2]), 0.0)
+        grads[0] = grads[0] + (pbc[b][c] if a else -pbc[b][c]) * val
+        grads[1] = grads[1] + (pac[a][c] if b else -pac[a][c]) * val
+        grads[2] = grads[2] + (pab[a][b] if c else -pab[a][b]) * val
+    keep = tr._fov_mask(g, in_dim)
+    return torch.stack([torch.where(keep, gd, 0.0) for gd in grads], dim=-1)
+
+
+def _grad_maps():
+    """The reach tests' six maps, and one whose FOV edge crosses the output
+    grid on every axis (a shift of several voxels)."""
+    for name, lin in REACH_MAPS:
+        yield (name,) + _reach_map(lin, IN_DIM)
+    yield ("fov_edge", tr.affine_to_M(affine_matrix_classic(
+        [4.3, -3.6, 5.2, 0.05, -0.03, 0.04])), IN_DIM)
+
+
+@pytest.mark.parametrize("name,M,out_dim", list(_grad_maps()),
+                         ids=[m[0] for m in _grad_maps()])
+def test_pull_grad_shared_products_equal_plain_bitwise(name, M, out_dim):
+    vol = torch.from_numpy(_vol(IN_DIM, 31))
+    want = tr.pull_grad_plain(vol, M, out_dim)
+    got = _pull_grad_shared_products(vol, M, out_dim)
+    assert want.abs().max() > 0
+    outside = ~tr._fov_mask(tr._sample_coords(M, out_dim, "cpu"), IN_DIM)
+    if name in ("fov_edge", "rot45"):
+        assert outside.any() and not outside.all()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("given_minv", [False, True])
 @pytest.mark.parametrize("order", [0, 1])
 @pytest.mark.parametrize("name,lin", REACH_MAPS)

@@ -26,8 +26,11 @@ namespace {
 // y, so a warp covers 8 (z) x 4 (y) outputs; see push_kernel for why
 constexpr int kLanesZ = 8;
 constexpr int kRowsY = 16;
-// pull: output rows along x a thread computes (i and i + 1)
+// pull and pull_grad: output rows along x a thread computes (i and i + 1)
 constexpr int kRowsX = 2;
+// pull_grad: a warp covers 16 (z) x 2 (y) outputs; see pull_grad_kernel
+constexpr int kGradLanesZ = 16;
+constexpr int kGradRowsY = 8;
 // clamp before a float -> int cast: far anchors have no source anyway
 constexpr float kFar = 1048576.0f;
 
@@ -72,6 +75,66 @@ __device__ __forceinline__ int clamp_far(float x) {
   return (int)fminf(fmaxf(x, -kFar), kFar);
 }
 
+// The 8 trilinear corners of RX sample points g (the outputs of rows i and
+// i + 1 of one thread): their floors fl, the corner values v in (a, b, c)
+// order, and whether each point lies inside the FOV. Where every corner of
+// every point lies inside the volume (almost everywhere), the corners are
+// read from 4 row pointers at fixed +0 / +1 offsets with no test, and the
+// FOV test is implied; elsewhere each corner is tested and an outside corner
+// reads 0, so that it adds w * 0 as the plain versions do.
+template <int RX>
+__device__ __forceinline__ void gather_corners(
+    const float* __restrict__ vol, float g[RX][3], int nx, int ny, int nz,
+    float fl[RX][3], float v[RX][8], bool keep[RX]) {
+  bool inner = true;
+#pragma unroll
+  for (int q = 0; q < RX; ++q) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) fl[q][d] = floorf(g[q][d]);
+    inner = inner & (fl[q][0] >= 0.0f) & (fl[q][0] < (float)(nx - 1)) &
+            (fl[q][1] >= 0.0f) & (fl[q][1] < (float)(ny - 1)) &
+            (fl[q][2] >= 0.0f) & (fl[q][2] < (float)(nz - 1));
+  }
+  if (inner) {
+    // every corner inside the volume, hence g inside the FOV
+    const unsigned sxy = (unsigned)ny * nz;
+#pragma unroll
+    for (int q = 0; q < RX; ++q) {
+      keep[q] = true;
+      const unsigned idx =
+          ((unsigned)fl[q][0] * ny + (unsigned)fl[q][1]) * nz +
+          (unsigned)fl[q][2];
+      const float* p0 = vol + idx;
+      const float* p1 = vol + (idx + nz);
+      const float* p2 = vol + (idx + sxy);
+      const float* p3 = vol + (idx + sxy + nz);
+      v[q][0] = __ldg(p0);
+      v[q][1] = __ldg(p0 + 1);
+      v[q][2] = __ldg(p1);
+      v[q][3] = __ldg(p1 + 1);
+      v[q][4] = __ldg(p2);
+      v[q][5] = __ldg(p2 + 1);
+      v[q][6] = __ldg(p3);
+      v[q][7] = __ldg(p3 + 1);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < RX; ++q) {
+      keep[q] = in_fov(g[q], nx, ny, nz);
+      const int a0 = clamp_far(fl[q][0]), b0 = clamp_far(fl[q][1]),
+                c0 = clamp_far(fl[q][2]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int a = a0 + ((e >> 2) & 1), b = b0 + ((e >> 1) & 1),
+                  c = c0 + (e & 1);
+        const bool ok = (a >= 0) & (a < nx) & (b >= 0) & (b < ny) &
+                        (c >= 0) & (c < nz);
+        v[q][e] = ok ? __ldg(vol + (a * ny + b) * nz + c) : 0.0f;
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // pull
 //
@@ -91,13 +154,11 @@ __device__ __forceinline__ int clamp_far(float x) {
 // time; a warp covers 8 (z) x 4 (y) outputs (stores in 32-byte sectors, and
 // its corner reads fall on a few input rows, served by L1). A thread
 // computes the outputs of rows i and i + 1, whose corner planes overlap in
-// L1. Where every corner of both outputs lies inside the volume (almost
-// everywhere), the 8 corners are read from 4 row pointers at fixed +0 / +1
-// offsets with no test, and the FOV test is implied; elsewhere each corner
-// is tested and an outside corner reads 0, which adds w * 0 as the plain
-// version does. Staging each tile's input box in shared memory (the TPU
-// kernel's VMEM window) measured slower at every tile size tried, L1
-// already serving the overlap (scripts/cuda_staged_variants.py reruns it).
+// L1, and reads their corners through gather_corners (an interior fast
+// path without bound tests). Staging each tile's input box in shared memory
+// (the TPU kernel's VMEM window) measured slower at every tile size tried,
+// L1 already serving the overlap (scripts/cuda_staged_variants.py reruns
+// it).
 // ---------------------------------------------------------------------------
 template <int ORDER>
 __global__ void __launch_bounds__(kLanesZ * kRowsY)
@@ -124,54 +185,8 @@ __global__ void __launch_bounds__(kLanesZ * kRowsY)
     }
   } else {
     float fl[kRowsX][3], v[kRowsX][8];
-    bool inner = true;
-#pragma unroll
-    for (int q = 0; q < kRowsX; ++q) {
-#pragma unroll
-      for (int d = 0; d < 3; ++d) fl[q][d] = floorf(g[q][d]);
-      inner = inner & (fl[q][0] >= 0.0f) & (fl[q][0] < (float)(nx - 1)) &
-              (fl[q][1] >= 0.0f) & (fl[q][1] < (float)(ny - 1)) &
-              (fl[q][2] >= 0.0f) & (fl[q][2] < (float)(nz - 1));
-    }
     bool keep[kRowsX];
-    if (inner) {
-      // every corner inside the volume, hence g inside the FOV
-      const unsigned sxy = (unsigned)ny * nz;
-#pragma unroll
-      for (int q = 0; q < kRowsX; ++q) {
-        keep[q] = true;
-        const unsigned idx =
-            ((unsigned)fl[q][0] * ny + (unsigned)fl[q][1]) * nz +
-            (unsigned)fl[q][2];
-        const float* p0 = vol + idx;
-        const float* p1 = vol + (idx + nz);
-        const float* p2 = vol + (idx + sxy);
-        const float* p3 = vol + (idx + sxy + nz);
-        v[q][0] = __ldg(p0);
-        v[q][1] = __ldg(p0 + 1);
-        v[q][2] = __ldg(p1);
-        v[q][3] = __ldg(p1 + 1);
-        v[q][4] = __ldg(p2);
-        v[q][5] = __ldg(p2 + 1);
-        v[q][6] = __ldg(p3);
-        v[q][7] = __ldg(p3 + 1);
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < kRowsX; ++q) {
-        keep[q] = in_fov(g[q], nx, ny, nz);
-        const int a0 = clamp_far(fl[q][0]), b0 = clamp_far(fl[q][1]),
-                  c0 = clamp_far(fl[q][2]);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int a = a0 + ((e >> 2) & 1), b = b0 + ((e >> 1) & 1),
-                    c = c0 + (e & 1);
-          const bool ok = (a >= 0) & (a < nx) & (b >= 0) & (b < ny) &
-                          (c >= 0) & (c < nz);
-          v[q][e] = ok ? __ldg(vol + (a * ny + b) * nz + c) : 0.0f;
-        }
-      }
-    }
+    gather_corners<kRowsX>(vol, g, nx, ny, nz, fl, v, keep);
 #pragma unroll
     for (int q = 0; q < kRowsX; ++q) {
       const float f0 = __fsub_rn(g[q][0], fl[q][0]);
@@ -318,78 +333,103 @@ __global__ void __launch_bounds__(kLanesZ * kRowsY)
 //   grad_x += (+-1) * wb * wc * v,  grad_y += wa * (+-1) * wc * v,
 //   grad_z += wa * wb * (+-1) * v
 // (+1 for the upper corner, -1 for the lower), out-of-range corners count 0,
-// and outputs whose sample point lies outside the FOV are 0. Each product and
-// sum is rounded in the plain version's order (((s * w) * w) * v, summed over
-// a, b, c in loop order) with the _rn intrinsics, and the sample point comes
-// from the same map_axis as pull, so kernel and plain version agree to the
-// bit.
+// and outputs whose sample point lies outside the FOV are 0. The plain
+// version rounds ((s * w) * w) * v and sums over a, b, c in loop order. A
+// product with +-1 is exact, so (sa * wb) * wc = +-(wb * wc), (wa * sb) * wc
+// = +-(wa * wc) and (wa * wb) * sc = +-(wa * wb): the 12 pair products
+// wb wc, wa wc, wa wb are rounded once each and reused with a sign, the
+// sample point comes from the same map_axis as pull, and kernel and plain
+// version agree to the bit.
 //
-// Bound: a gather like pull (8 corner reads) with three times the stores:
-// the output is (ox, oy, oz, 3) in C order, the JAX layout, written directly
-// (thread t stores floats 3t .. 3t+2, so a warp stores 96 contiguous floats).
-// Design: pull's, one thread per output voxel along Z; no shared memory.
+// Bound: device memory (the input read once, three floats written per
+// output: 34 us at the fit's 181x217x181 -> 181x217x185x3 on an H100 at 3.35
+// TB/s, three quarters of it stores), with pull's gather and issue load on
+// top. The output is (ox, oy, oz, 3) in C order, the JAX layout: a thread's
+// three results lie 12 bytes apart.
+//
+// Design: pull's launch grid (no index split), its two rows per thread and
+// its corner gather (gather_corners: no branch per corner, the 8 loads
+// issued together), and the 12 pair products above in place of 48 weight
+// products. A warp covers 16 (z) x 2 (y) outputs and stores its results
+// directly: each of its three store instructions touches two runs of 192
+// bytes, and L2 merges the three into whole sectors. Passing the results
+// through shared memory, so that every store instruction writes consecutive
+// floats, measured slower at every block shape, behind a block barrier and
+// behind a warp barrier alike: the stores were not what held the first
+// kernel back (scripts/cuda_pull_grad_variants.py reruns the comparison,
+// with the first kernel and the other block shapes).
 // ---------------------------------------------------------------------------
-__global__ void pull_grad_kernel(const float* __restrict__ vol,
-                                 float* __restrict__ out, Map34 M, int nx,
-                                 int ny, int nz, int ox, int oy, int oz) {
-  const int n_out = ox * oy * oz;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_out) return;
-  const int k = t % oz;
-  const int r = t / oz;
-  const int j = r % oy;
-  const int i = r / oy;
-  float g[3];
-  map_point(M, (float)i, (float)j, (float)k, g);
-  float gx = 0.0f, gy = 0.0f, gz = 0.0f;
-  if (in_fov(g, nx, ny, nz)) {
-    const float fa = floorf(g[0]), fb = floorf(g[1]), fc = floorf(g[2]);
-    const int a0 = (int)fa, b0 = (int)fb, c0 = (int)fc;
-    const float f0 = __fsub_rn(g[0], fa);
-    const float f1 = __fsub_rn(g[1], fb);
-    const float f2 = __fsub_rn(g[2], fc);
+template <int RX>
+__device__ __forceinline__ void pull_grad_rows(
+    const float* __restrict__ vol, const Map34& M, int nx, int ny, int nz,
+    int i0, int ox, int j, int k, float res[RX][3]) {
+  float g[RX][3], fl[RX][3], v[RX][8];
+  bool keep[RX];
 #pragma unroll
-    for (int da = 0; da < 2; ++da) {
-      const int a = a0 + da;
-      if (a < 0 || a >= nx) continue;
-      const float wa = da ? f0 : __fsub_rn(1.0f, f0);
-      const float sa = da ? 1.0f : -1.0f;
+  for (int q = 0; q < RX; ++q)
+    map_point(M, (float)min(i0 + q, ox - 1), (float)j, (float)k, g[q]);
+  gather_corners<RX>(vol, g, nx, ny, nz, fl, v, keep);
 #pragma unroll
-      for (int db = 0; db < 2; ++db) {
-        const int b = b0 + db;
-        if (b < 0 || b >= ny) continue;
-        const float wb = db ? f1 : __fsub_rn(1.0f, f1);
-        const float sb = db ? 1.0f : -1.0f;
+  for (int q = 0; q < RX; ++q) {
+    const float f0 = __fsub_rn(g[q][0], fl[q][0]);
+    const float f1 = __fsub_rn(g[q][1], fl[q][1]);
+    const float f2 = __fsub_rn(g[q][2], fl[q][2]);
+    const float wa[2] = {__fsub_rn(1.0f, f0), f0};
+    const float wb[2] = {__fsub_rn(1.0f, f1), f1};
+    const float wc[2] = {__fsub_rn(1.0f, f2), f2};
+    float pbc[2][2], pac[2][2], pab[2][2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        pbc[s][t] = __fmul_rn(wb[s], wc[t]);
+        pac[s][t] = __fmul_rn(wa[s], wc[t]);
+        pab[s][t] = __fmul_rn(wa[s], wb[t]);
+      }
+    // the plain version's corner order: a, then b, then c
+    float gx = 0.0f, gy = 0.0f, gz = 0.0f;
+#pragma unroll
+    for (int da = 0; da < 2; ++da)
+#pragma unroll
+      for (int db = 0; db < 2; ++db)
 #pragma unroll
         for (int dc = 0; dc < 2; ++dc) {
-          const int c = c0 + dc;
-          if (c < 0 || c >= nz) continue;
-          const float wc = dc ? f2 : __fsub_rn(1.0f, f2);
-          const float sc = dc ? 1.0f : -1.0f;
-          const float v = __ldg(vol + (a * ny + b) * nz + c);
-          gx = madd(gx, __fmul_rn(__fmul_rn(sa, wb), wc), v);
-          gy = madd(gy, __fmul_rn(__fmul_rn(wa, sb), wc), v);
-          gz = madd(gz, __fmul_rn(__fmul_rn(wa, wb), sc), v);
+          const float val = v[q][4 * da + 2 * db + dc];
+          gx = madd(gx, da ? pbc[db][dc] : -pbc[db][dc], val);
+          gy = madd(gy, db ? pac[da][dc] : -pac[da][dc], val);
+          gz = madd(gz, dc ? pab[da][db] : -pab[da][db], val);
         }
-      }
-    }
+    res[q][0] = keep[q] ? gx : 0.0f;
+    res[q][1] = keep[q] ? gy : 0.0f;
+    res[q][2] = keep[q] ? gz : 0.0f;
   }
-  float* o = out + 3 * (long long)t;
-  o[0] = gx;
-  o[1] = gy;
-  o[2] = gz;
 }
 
-constexpr int kThreads = 256;
+template <int LZ, int RY, int RX>
+__global__ void __launch_bounds__(LZ * RY)
+    pull_grad_kernel(const float* __restrict__ vol, float* __restrict__ out,
+                     Map34 M, int nx, int ny, int nz, int ox, int oy,
+                     int oz) {
+  const int j = blockIdx.y * RY + threadIdx.y;
+  const int k = blockIdx.x * LZ + threadIdx.x;
+  if (j >= oy || k >= oz) return;
+  const int i0 = blockIdx.z * RX;
+  float res[RX][3];
+  pull_grad_rows<RX>(vol, M, nx, ny, nz, i0, ox, j, k, res);
+#pragma unroll
+  for (int q = 0; q < RX; ++q) {
+    if (i0 + q >= ox) break;
+    float* o = out + 3 * (((i0 + q) * oy + j) * oz + k);
+    o[0] = res[q][0];
+    o[1] = res[q][1];
+    o[2] = res[q][2];
+  }
+}
 
 inline Map34 load_map(const float* m) {
   Map34 M;
   for (int q = 0; q < 12; ++q) M.m[q] = m[q];
   return M;
-}
-
-inline unsigned int n_blocks(long long n) {
-  return (unsigned int)((n + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -442,10 +482,14 @@ int unires_push(const float* vals, float* out, const float* m,
 int unires_pull_grad(const float* vol, float* out, const float* m, int nx,
                      int ny, int nz, int ox, int oy, int oz, void* stream) {
   const Map34 M = load_map(m);
-  const long long n = (long long)ox * oy * oz;
-  if (n == 0) return (int)cudaGetLastError();
-  pull_grad_kernel<<<n_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-      vol, out, M, nx, ny, nz, ox, oy, oz);
+  if ((long long)ox * oy * oz == 0) return (int)cudaGetLastError();
+  const dim3 block(kGradLanesZ, kGradRowsY);
+  const dim3 grid((unsigned)((oz + kGradLanesZ - 1) / kGradLanesZ),
+                  (unsigned)((oy + kGradRowsY - 1) / kGradRowsY),
+                  (unsigned)((ox + kRowsX - 1) / kRowsX));
+  pull_grad_kernel<kGradLanesZ, kGradRowsY, kRowsX>
+      <<<grid, block, 0, (cudaStream_t)stream>>>(vol, out, M, nx, ny, nz, ox,
+                                                 oy, oz);
   return (int)cudaGetLastError();
 }
 

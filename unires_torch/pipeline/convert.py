@@ -2,7 +2,8 @@
 
 ``unires_tpu``'s ``init`` produces ``x`` (XData), ``y`` (YData) and its
 ``Settings``; its ADMM loop carries ``z``/``w``. This module copies them —
-geometry (``ProjOp``), hyper-parameters (tau, sd, mu, lam0), volumes and,
+geometry (``ProjOp``), hyper-parameters (tau, sd, mu, lam0), volumes, labels,
+the co-registration and atlas transforms (``mat_coreg``, ``mat_atlas``) and,
 mid-fit, the loop state (poses, scales, schedule counters, z, w) — into
 ``unires_torch`` structs with torch tensors on ``device``, so both packages
 can start an iteration from identical state. It needs no JAX: every array
@@ -27,6 +28,13 @@ def to_tensor(a, device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.detach().to(device=device, dtype=torch.float32)
     return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+
+def _label_tensor(a, device) -> torch.Tensor:
+    """A label volume keeps its dtype."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device)
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def convert_settings(sett, device) -> Settings:
@@ -76,14 +84,17 @@ def convert_state(x, y, sett, device="cpu", z=None, w=None, state=None):
             fields = {f.name: getattr(o, f.name) for f in dataclasses.fields(Obs)}
             fields["dat"] = to_tensor(o.dat, device)
             fields["po"] = None if o.po is None else convert_proj_op(o.po)
-            fields["label"] = None
+            fields["label"] = (None if o.label is None
+                               else [_label_tensor(o.label[0], device),
+                                     o.label[1]])
             row.append(Obs(**fields))
         x_t.append(row)
     y_t = []
     for yc in y:
         fields = {f.name: getattr(yc, f.name) for f in dataclasses.fields(Chan)}
         fields["dat"] = None if yc.dat is None else to_tensor(yc.dat, device)
-        fields["label"] = None
+        fields["label"] = (None if yc.label is None
+                           else _label_tensor(yc.label, device))
         y_t.append(Chan(**fields))
     sett_t = convert_settings(sett, device)
     out = (x_t, y_t, sett_t)

@@ -2,8 +2,8 @@
 
 Mirrors the reference ``_format_y``/``_all_mat_dim_vx``/``_proj_info_add``/
 ``_init_y_dat`` (unires/_core.py:27-50, 171-285, 371-454), as
-``unires_tpu.pipeline.format_y`` does. Labels (``_init_y_label``) are not
-ported yet (ROADMAP queue 1, item 13).
+``unires_tpu.pipeline.format_y`` does, with the labels (``_warp_label``,
+``_init_y_label``, unires/_core.py:402-436).
 """
 from __future__ import annotations
 
@@ -162,4 +162,38 @@ def init_y_dat(x: XData, y: YData, sett):
             dat_y = dat_y + dat
         sm = torch.where(sm == 0, 1.0, sm)
         y[c].dat = dat_y / sm
+    return y
+
+
+def warp_label(label, M, dim_y) -> torch.Tensor:
+    """Majority-vote label warp (reference _warp_label, _core.py:419-436):
+    each label value's indicator is pulled trilinearly, and a voxel takes
+    the value whose pulled indicator is largest (0 where none is positive).
+    Returns a tensor of the label's dtype on its device."""
+    if not isinstance(label, torch.Tensor):
+        label = torch.from_numpy(np.ascontiguousarray(label))
+    u = torch.unique(label)
+    if u.numel() > 255:
+        raise ValueError("Too many label values.")
+    dim_y = tuple(int(d) for d in dim_y)
+    f1 = torch.zeros(dim_y, dtype=label.dtype, device=label.device)
+    p1 = torch.zeros(dim_y, dtype=torch.float32, device=label.device)
+    for u1 in u:
+        tmp = pull((label == u1).to(torch.float32), M, dim_y, order=1)
+        msk = tmp > p1
+        p1 = torch.where(msk, tmp, p1)
+        f1 = torch.where(msk, u1, f1)
+    return f1
+
+
+def init_y_label(x: XData, y: YData, sett):
+    """Initial labels (reference _init_y_label, _core.py:402-416)."""
+    dim_y = y[0].dim
+    mat_y = y[0].mat
+    for c in range(len(x)):
+        o = x[c][0]
+        if o.label is not None:
+            M = affine_to_M(np.linalg.solve(np.asarray(o.mat, np.float64),
+                                            mat_y))
+            y[c].label = warp_label(o.label[0], M, dim_y)
     return y

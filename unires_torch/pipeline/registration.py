@@ -1,9 +1,12 @@
-"""Rigid co-registration of the input images by normalised mutual information.
+"""Registration by normalised mutual information: co-registration of the
+inputs, alignment to an atlas, and the origin reset of CT volumes.
 
-The behaviour of ``unires_tpu.pipeline.registration.affine_align`` (the
-reference init's nitorch ``affine_align``, unires/_core.py:310-368: NMI cost,
-SE group, fwhm 7, one fixed image), without the JAX package's TPU remedies
-(separable-matmul reslice, fused pyramid program, window plans, AOT cache):
+The behaviour of ``unires_tpu.pipeline.registration`` (the reference init's
+nitorch ``affine_align`` / ``atlas_align`` / ``reset_origin``,
+unires/_core.py:145-168, 310-368: NMI cost, fwhm 7, one fixed image; SE(3)
+for co-registration, SE(3) or rigid + isotropic scale ("CSO") against the
+atlas), without the JAX package's TPU remedies (separable-matmul reslice,
+fused pyramid program, window plans, batched levels, AOT cache):
 
 * every pyramid level lives on a world-axis-aligned isotropic grid: each
   image is resliced once through the pull kernel onto the finest level's
@@ -12,7 +15,7 @@ SE group, fwhm 7, one fixed image), without the JAX package's TPU remedies
 * the joint histogram uses soft (linear) binning, 64 bins, accumulated in
   chunks of 65,536 voxels as (64, chunk) x (chunk, 64) products, so the NMI
   -(H_f + H_m) / H_joint is differentiable in the moved image;
-* its gradient in the se(3) parameters has two halves: the histogram half by
+* its gradient in the group's parameters has two halves: the histogram half by
   ``torch.autograd`` (d NMI / d moved intensities), and the resampler half
   from the pull_grad kernel contracted to order-<=1 spatial moments (the map
   is affine in the voxel coordinate, as in ``solvers.rigid``);
@@ -22,22 +25,26 @@ SE group, fwhm 7, one fixed image), without the JAX package's TPU remedies
   the loss and 12 moments back to the host once.
 
 The movers of a level run one after another (the JAX package batches them
-with ``vmap``; the per-mover result is the same). ``atlas_align`` and
-``reset_origin`` are not ported yet.
+with ``vmap``; the per-mover result is the same). The exponential acts about
+the fixed image's centre (:func:`_fix_centre`): without that the CSO scale
+parameter couples with the translations and the descent crawls.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import os
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..data import default_atlas
 from ..geometry import (affine_basis, affine_translation, dexpm, expm,
                         rigid_log, voxel_size)
 from ..ops.lie import compose_maps
 from ..ops.resample import affine_to_M, pull, pull_grad
 from ..solvers.rigid import _centred_coords, _moments
 from ..utils.host import to_host
+from .nifti import load as nifti_load
 
 _BINS = 64
 _CHUNK = 1 << 16
@@ -146,9 +153,12 @@ def _iso_pyramid(dat: torch.Tensor, mat, levels, fwhms, box=None):
     return out
 
 
-# translations are in mm, rotations in radians: scale the search directions
-# per parameter kind
-_QSCALE = np.array([1.0, 1.0, 1.0, 0.01, 0.01, 0.01])
+def _qscale(K: int) -> np.ndarray:
+    """Translations are in mm, rotations (and the log-scale) in radians:
+    the search directions are scaled per parameter kind."""
+    s = np.full(K, 0.01)
+    s[:3] = 1.0
+    return s
 
 
 # ---------------------------------------------------------------------------
@@ -166,17 +176,18 @@ def _normalise(v: torch.Tensor, vmin, vmax) -> torch.Tensor:
 
 
 class _NMILevel:
-    """Loss and gradient of one level's NMI in the six SE(3) parameters.
+    """Loss and gradient of one level's NMI in the parameters of ``group``
+    (six for SE(3), seven for CSO).
 
     The fixed image's bin weights do not depend on the pose: they are built
     once per level, one (64, 65536) block per chunk.
     """
 
-    def __init__(self, fix, mov, pre4, post4):
+    def __init__(self, fix, mov, pre4, post4, group: str = "SE"):
         self.fix_dim = tuple(fix.shape)
         self.mov = mov
         self.pre4, self.post4 = pre4, post4
-        self.basis = affine_basis("SE")
+        self.basis = affine_basis(group)
         fn = _normalise(fix.reshape(-1), fix.min(), fix.max())
         self.Wf = [_soft_weights(c) for c in torch.split(fn, _CHUNK)]
         self.mmin, self.mmax = mov.min(), mov.max()
@@ -198,7 +209,7 @@ class _NMILevel:
         return -(hf + hm) / torch.clamp(hj, min=eps)
 
     def __call__(self, q):
-        """(loss, gradient (6,)) at q, one read-back."""
+        """(loss, gradient (K,)) at q, one read-back."""
         R, dR = dexpm(q, self.basis)
         M = compose_maps(self.pre4, R, self.post4)[0]
         movf = pull(self.mov, M, self.fix_dim).reshape(-1).detach().requires_grad_()
@@ -222,10 +233,11 @@ class _NMILevel:
 def _descend(vg, q0, iters: int = 150):
     """Adaptive-step preconditioned descent (the JAX optimiser's loop)."""
     q = np.asarray(q0, np.float64)
+    scale = _qscale(q.shape[0])
     loss, g = vg(q)
     step, it, no_prog = 100.0, 0, 0
     while it < iters and step > 1e-7 and no_prog < 12:
-        cand = q - step * _QSCALE * _QSCALE * g
+        cand = q - step * scale * scale * g
         new_loss, new_g = vg(cand)
         accept = new_loss < loss
         # an evaluation "progresses" if it improves the loss by > 1e-5 rel.
@@ -238,12 +250,35 @@ def _descend(vg, q0, iters: int = 150):
     return q, loss
 
 
-def _opt_level(fd, fm, md, mm, q, wc, iters: int = 150):
+def _opt_level(fd, fm, md, mm, q, wc, group: str = "SE", iters: int = 150):
     """One level's optimisation of mover (md, mm) against (fd, fm)."""
     pre4 = (np.linalg.inv(np.asarray(mm, np.float64))
             @ affine_translation(wc))
     post4 = affine_translation(-wc) @ np.asarray(fm, np.float64)
-    return _descend(_NMILevel(fd, md, pre4, post4), q, iters)
+    return _descend(_NMILevel(fd, md, pre4, post4, group), q, iters)
+
+
+def _as_volume(dat, device=None) -> torch.Tensor:
+    """Any array -> float32 tensor (on ``device`` when given)."""
+    if not isinstance(dat, torch.Tensor):
+        dat = torch.from_numpy(np.asarray(dat, np.float32))
+    return dat.to(device=device, dtype=torch.float32)
+
+
+def _register_pair(fix_dat, fix_mat, mov_dat, mov_mat, q0, levels, fwhm,
+                   maxiter: int = 150, group: str = "SE"):
+    """Multi-resolution NMI registration of one pair. Returns (q, wc):
+    the parameters of the centred exponential and its centre; the world
+    transform is :func:`q_to_world` (q, group, wc)."""
+    wc = _fix_centre(fix_dat.shape, fix_mat)
+    q = np.asarray(q0, np.float64)
+    fwhms = ([float(fwhm)] * len(levels) if np.isscalar(fwhm)
+             else [float(f) for f in fwhm])
+    fix_pyr = _iso_pyramid(fix_dat, fix_mat, levels, fwhms)
+    mov_pyr = _iso_pyramid(mov_dat, mov_mat, levels, fwhms)
+    for (fd, fm), (md, mm) in zip(fix_pyr, mov_pyr):
+        q, _ = _opt_level(fd, fm, md, mm, q, wc, group, maxiter)
+    return q, wc
 
 
 def affine_align(imgs: Sequence[Tuple[torch.Tensor, np.ndarray]], fix: int = 0,
@@ -274,9 +309,7 @@ def affine_align(imgs: Sequence[Tuple[torch.Tensor, np.ndarray]], fix: int = 0,
     levels = tuple([float(lv) for lv in levels if lv > samp] + [float(samp)])
     fwhms = ([float(fwhm)] * len(levels) if np.isscalar(fwhm)
              else [float(f) for f in fwhm])
-    dats = [d if isinstance(d, torch.Tensor) else torch.from_numpy(
-        np.asarray(d, np.float32)) for d, _ in imgs]
-    dats = [d.to(torch.float32) for d in dats]
+    dats = [_as_volume(d) for d, _ in imgs]
     fix_mat = imgs[fix][1]
     wc = _fix_centre(dats[fix].shape, fix_mat)
     fix_pyr = _iso_pyramid(dats[fix], fix_mat, levels, fwhms)
@@ -299,3 +332,70 @@ def affine_align(imgs: Sequence[Tuple[torch.Tensor, np.ndarray]], fix: int = 0,
         for i in range(N):
             mat_a[i] = mat_a[i] @ Gm
     return mat_a
+
+
+# ---------------------------------------------------------------------------
+# Atlas alignment / origin reset
+# ---------------------------------------------------------------------------
+
+_ATLAS_PATH_ENV = "UNIRES_ATLAS"
+
+
+def atlas_align(img: Tuple[torch.Tensor, np.ndarray], rigid: bool = True,
+                atlas_path: Optional[str] = None) -> np.ndarray:
+    """Align one image to a T1 atlas (reference _core.py:340-353); returns
+    the world transform mat_a, applied as ``mat <- solve(mat_a, mat)``.
+
+    The atlas volume: the ``atlas_path`` argument, else the UNIRES_ATLAS
+    environment variable (any NIfTI in MNI-like space), else the bundled
+    procedural MNI-space template (``unires_torch.data.default_atlas``). It
+    is the fixed image, on the image's device; ``rigid`` picks SE(3), else
+    CSO = rigid + isotropic scale (the reference's ``atlas_rigid=False``).
+    Every NMI evaluation is one pull and one pull_grad of the image's level.
+    """
+    dat, mat = img
+    dat = _as_volume(dat)
+    atlas_path = atlas_path or os.environ.get(_ATLAS_PATH_ENV)
+    if atlas_path:
+        adat, ahdr = nifti_load(atlas_path)
+        amat = ahdr.affine
+    else:
+        adat, amat = default_atlas()
+    group = "SE" if rigid else "CSO"
+    K = affine_basis(group).shape[0]
+    # finish at the coarser of the two native resolutions (the bundled
+    # template is 2 mm; a 1 mm atlas/image pair refines down to 1 mm)
+    fine = max(float(np.min(voxel_size(amat))),
+               float(np.min(voxel_size(np.asarray(mat, np.float64)))), 1.0)
+    levels = [8.0, 4.0] + [float(lv) for lv in (2.0, fine) if lv > fine] + [fine]
+    fwhms = [7.0] * (len(levels) - 2) + [4.0, 4.0]
+    q, wc = _register_pair(_as_volume(adat, dat.device), amat, dat, mat,
+                           np.zeros(K), levels=tuple(levels),
+                           fwhm=tuple(fwhms), group=group)
+    return q_to_world(q, group, wc)
+
+
+def reset_origin(dat, mat: np.ndarray, interpolation: int = 1):
+    """World-reslice + origin reset (reference: nitorch reset_origin for CT,
+    unires/_core.py:145-168).
+
+    The volume is resliced through the pull kernel onto an axis-aligned grid
+    (the same voxel size per world axis, covering the input FOV) whose
+    origin sits at the FOV centre. Returns the new data and affine.
+    """
+    dat = _as_volume(dat)
+    mat = np.asarray(mat, np.float64)
+    dim = np.asarray(dat.shape, np.float64)
+    A = mat[:3, :3]
+    vx = np.sqrt((A ** 2).sum(axis=0))
+    # input axis most aligned with each world axis -> its voxel size
+    perm = np.argmax(np.abs(A), axis=1)
+    vx_world = vx[perm]
+    lo, hi = _world_box([(mat, dim)])
+    dim_o = np.maximum(np.floor((hi - lo) / vx_world + 0.5) + 1, 1)
+    mat_o = np.eye(4)
+    mat_o[:3, :3] = np.diag(vx_world)
+    mat_o[:3, 3] = -(vx_world * (dim_o - 1) / 2.0)  # origin = FOV centre
+    out = pull(dat.contiguous(), affine_to_M(np.linalg.solve(mat, mat_o)),
+               tuple(int(d) for d in dim_o), order=interpolation)
+    return out, mat_o

@@ -13,14 +13,16 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..geometry import affine_basis
+from ..geometry import affine_basis, voxel_size
+from ..ops.resample import affine_to_M, pull
 from ..settings import Settings, check_supported
 from ..utils.log import info
 from .fit import fit as _fit
-from .format_y import format_y, init_y_dat, proj_info_add
+from .format_y import (format_y, init_y_dat, init_y_label, proj_info_add,
+                       warp_label)
 from .hyperpar import estimate_hyperpar
 from .nifti import load as nifti_load, save as nifti_save
-from .registration import affine_align
+from .registration import affine_align, atlas_align, reset_origin
 from .structs import Obs, XData, YData
 
 
@@ -104,14 +106,22 @@ def read_data(data, sett) -> XData:
             else:
                 x[c].append(_read_image(item, device, is_ct=sett.ct))
 
+    if sett.label is not None:
+        pth, (ci, ni) = sett.label
+        dat, hdr = nifti_load(pth)
+        if tuple(dat.shape) != tuple(x[ci][ni].dim):
+            raise ValueError("Incorrect label dimensions.")
+        x[ci][ni].label = [torch.from_numpy(dat).to(device), hdr]
+
     info(sett, "filenames", x)
     return x
 
 
 def init_reg(x: XData, sett):
     """Registration init (reference _core.py:310-368): NMI co-registration
-    of all images when ``do_coreg`` and N > 1, then the rigid basis and zero
-    poses. Atlas alignment is not ported yet (``check_supported``)."""
+    of all images when ``do_coreg`` and N > 1, alignment of image ``fix`` to
+    the atlas when ``do_atlas_align`` (every image then moves by that one
+    transform), then the rigid basis and zero poses."""
     N = sum(len(xc) for xc in x)
     sett.rigid_basis = affine_basis("SE")
     if sett.do_coreg and N > 1:
@@ -127,10 +137,65 @@ def init_reg(x: XData, sett):
                 o.mat = np.linalg.solve(mat_a[i], o.mat)
                 i += 1
         info(sett, "init-reg-done", t0)
+    if sett.do_atlas_align:
+        t0 = info(sett, "init-reg-begin", "atlas", N)
+        imgs = [(o.dat, o.mat) for xc in x for o in xc]
+        mat_a = atlas_align(imgs[sett.fix], rigid=sett.atlas_rigid)
+        sett.mat_atlas = mat_a
+        for xc in x:
+            for o in xc:
+                o.mat = np.linalg.solve(mat_a, o.mat)
+        info(sett, "init-reg-done", t0)
     for xc in x:
         for o in xc:
             o.rigid_q = np.zeros(sett.rigid_basis.shape[0], np.float64)
     return x, sett
+
+
+def resample_inplane(x: XData, sett):
+    """Downsample in-plane axes finer than the recon voxel size
+    (reference _core.py:457-493, force_inplane_res): a nearest-neighbour
+    pull of the data, a majority vote of the label."""
+    if not (sett.force_inplane_res and sett.max_iter > 0):
+        return x
+    for xc in x:
+        for o in xc:
+            vx_x = voxel_size(o.mat)
+            D = np.eye(4)
+            for i in range(3):
+                tgt = sett.vx[i] if isinstance(sett.vx, (list, tuple)) else sett.vx
+                D[i, i] = max(1.0, float(tgt) / vx_x[i])
+            if np.abs(np.eye(4) - D).sum() < 1e-4:
+                continue
+            new_dim = tuple(int(v) for v in np.floor(
+                np.linalg.inv(D[:3, :3]) @ np.asarray(o.dim, float)))
+            M = affine_to_M(D)
+            o.dat = pull(o.dat, M, new_dim, order=0)
+            if o.label is not None:
+                o.label[0] = warp_label(o.label[0], M, new_dim)
+            o.mat = o.mat @ D
+            o.dim = new_dim
+    return x
+
+
+def fix_affine(x: XData, sett):
+    """Reset the origin of CT volumes, and of their labels (reference
+    _core.py:145-168)."""
+    if not sett.do_res_origin:
+        return x
+    cnt = 0
+    for xc in x:
+        for o in xc:
+            if o.ct:
+                omat = o.mat
+                o.dat, o.mat = reset_origin(o.dat, omat)
+                if o.label is not None:
+                    o.label[0], _ = reset_origin(o.label[0], omat,
+                                                 interpolation=0)
+                o.dim = tuple(o.dat.shape)
+                cnt += 1
+    info(sett, "fix-affine", cnt)
+    return x
 
 
 def init(data, sett: Optional[Settings] = None):
@@ -138,14 +203,22 @@ def init(data, sett: Optional[Settings] = None):
     sett = sett if sett is not None else Settings()
     get_device(sett)
     info(sett, "init")
+    if sett.common_output:
+        sett.do_atlas_align = True
+        sett.crop = True
+        if sett.pow == 0:
+            sett.pow = 256
     x = read_data(data, sett)
     check_supported(sett)
     if sett.max_iter > 0:
         x = estimate_hyperpar(x, sett)
+    x = fix_affine(x, sett)
+    x = resample_inplane(x, sett)
     x, sett = init_reg(x, sett)
     y, sett = format_y(x, sett)
     x = proj_info_add(x, y, sett)
     y = init_y_dat(x, y, sett)
+    y = init_y_label(x, y, sett)
     return x, y, sett
 
 
@@ -160,6 +233,8 @@ def write_data(x: XData, y: YData, sett, jtv=None):
         os.makedirs(dir_out, exist_ok=True)
 
     pth_y: List[str] = []
+    pth_label = None
+    label = None
     dat_stack = []
     for c in range(len(x)):
         mn = min(float(torch.min(o.dat)) for o in x[c])
@@ -172,6 +247,11 @@ def write_data(x: XData, y: YData, sett, jtv=None):
             pth_y.append(fname)
             nifti_save(dat, fname, affine=mat)
             info(sett, "saved", fname)
+            if y[c].label is not None:
+                pth_label = os.path.join(
+                    dir_out, _tag(sett, sett.prefix + "label_" + nam))
+                label = y[c].label
+                nifti_save(label.cpu().numpy(), pth_label, affine=mat)
 
     dat_y = np.stack(dat_stack, axis=-1)
     if sett.write_out and sett.mat is not None:
@@ -187,7 +267,7 @@ def write_data(x: XData, y: YData, sett, jtv=None):
         nifti_save(jtv.cpu().numpy(), fname, affine=mat)
         info(sett, "saved", fname)
 
-    return dat_y, pth_y, None, None
+    return dat_y, pth_y, label, pth_label
 
 
 def _tag(sett, nam: str) -> str:

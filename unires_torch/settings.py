@@ -128,11 +128,6 @@ settings = Settings
 # each (queue 1 unless stated). A run that reaches one raises: none of them
 # may silently change the computation.
 _UNPORTED = (
-    ("do_atlas_align", "queue 1, item 11 (registration)"),
-    ("common_output", "queue 1, item 11 (registration: atlas alignment)"),
-    ("do_res_origin", "queue 1, item 11 (registration: reset_origin)"),
-    ("force_inplane_res", "queue 1, item 10 (init: resample_inplane)"),
-    ("label", "queue 1, item 13 (labels)"),
     ("checkpoint_every", "queue 1, item 13 (checkpoint)"),
     ("resume", "queue 1, item 13 (checkpoint)"),
     ("shard", "queue 1, item 13 (parallel)"),
