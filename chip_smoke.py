@@ -47,13 +47,27 @@ Phases, each printing its lines:
 7. The command line on the card: two NIfTI files in a temporary directory
    through ``unires_torch.cli.run([... "--common_output"])``, the outputs
    read back and checked for shape and affine.
+8. What a long or many-subject run needs, at full width on the misaligned
+   workload: (a) a fit of 8 iterations, the same cut after 4 with a
+   checkpoint every 2, and its resume from the file to 8, all from copies
+   of one init, the resumed run held against the uninterrupted one;
+   (b) 2 iterations under ``profile_dir``: the trace must name the
+   hand-written kernels; (c) two subjects (two noise and pose seeds of the
+   phantom, the second on the first's grid) through ``fit_batch``, held
+   against single fits from copies of the same inits, with the counters
+   reset before the batch and read after it; then ``--shard`` with
+   ``--common_output`` on two subjects of two 2 mm channels each.
 
 The line before the last holds the kernels' JSON record (``launches`` from
-the misaligned run, ``launches_atlas`` from phase 6), the one before it the
+the misaligned run, ``launches_atlas`` from phase 6, ``launches_batch`` from
+phase 8's ``fit_batch``), the one before it the
 card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises: nothing is caught.
 """
+import copy
 import functools
+import glob
+import importlib
 import json
 import os
 import statistics
@@ -118,6 +132,13 @@ T_SYNTH = affine_matrix_classic([8.0, -5.0, 4.0, 0.04, -0.03, 0.02])
 # tests/test_atlas_geometry.py:41-54
 ATLAS_TOL_MM = 6.0
 INIT_TOL = 1e-5  # card vs CPU init volumes, relative to max|input|
+# a resumed fit against the uninterrupted one: objective rows relative,
+# volumes relative to their scale, poses (mm / rad) absolute. Not bitwise: a
+# resume recomputes the CG preconditioner's data-term diagonals
+RESUME_TOL = dict(trace=1e-4, vol=1e-3, pose=1e-4)
+# a subject in a batch against the same subject alone (one stream: the same
+# launches in the same order)
+BATCH_TOL = dict(trace=1e-6, vol=1e-5)
 SOURCE = "unires_torch/csrc/resample.cu"
 # the Pallas kernels each CUDA kernel replaces (shear variant first; the
 # JAX fit runs it): pull also :219, push also :673, pull_grad also :328
@@ -534,10 +555,11 @@ def _phantom(contrast, dim):
         vol[tuple(slice(a, a + d) for a, d in zip(lo, dim))])
 
 
-def _bench_workload(device, dim, misaligned):
+def _bench_workload(device, dim, misaligned, seed=0):
     """The 3-channel brain phantom of bench.py:40-91 (rigids and scaling
-    only when ``misaligned``), with its ground truths and rigids."""
-    rng = np.random.default_rng(0)
+    only when ``misaligned``), with its ground truths and rigids; ``seed``
+    draws the poses and the noise (bench.py's is 0)."""
+    rng = np.random.default_rng(seed)
     gts = [_phantom(c, dim) for c in ("t1", "t2", "pd")]
     rigids = _draw_rigids(rng, 3) if misaligned else [np.eye(4)] * 3
     scl = 0.1 if misaligned else 0.0
@@ -807,6 +829,23 @@ def phase_ct_inplane(tmp, devices=("cuda", "cpu")):
           f"{lab_diff} | pull launches {ng}")
 
 
+def _cli_inputs(tmp, name, seed, shift=None):
+    """Two 2 mm channels (t1, t2) of the phantom with noise from ``seed``,
+    displaced in the atlas frame by T_SYNTH (and ``shift``), as NIfTI files
+    ``<name>_t1.nii.gz`` / ``<name>_t2.nii.gz`` under ``tmp``."""
+    rng = np.random.default_rng(seed)
+    mat = T_SYNTH @ MAT_MNI @ affine_diag([2.0, 2.0, 2.0])
+    if shift is not None:
+        mat = affine_matrix_classic(shift) @ mat
+    paths = []
+    for c in ("t1", "t2"):
+        vol = _full_phantom(c)[::2, ::2, ::2]
+        vol = vol + 40.0 * rng.standard_normal(vol.shape).astype(np.float32)
+        paths.append(os.path.join(tmp, f"{name}_{c}.nii.gz"))
+        nifti_save(vol.astype(np.float32), paths[-1], affine=mat)
+    return paths
+
+
 def phase_cli(tmp, device=None):
     """The command line on the card (its default device): two 2 mm channels,
     displaced, through ``--common_output``; outputs read back."""
@@ -814,14 +853,7 @@ def phase_cli(tmp, device=None):
     # older trees of the port, which have no command line
     from unires_torch.cli import run as cli_run
 
-    rng = np.random.default_rng(6)
-    mat = T_SYNTH @ MAT_MNI @ affine_diag([2.0, 2.0, 2.0])
-    paths = []
-    for c in ("t1", "t2"):
-        vol = _full_phantom(c)[::2, ::2, ::2]
-        vol = vol + 40.0 * rng.standard_normal(vol.shape).astype(np.float32)
-        paths.append(os.path.join(tmp, f"sub_{c}.nii.gz"))
-        nifti_save(vol.astype(np.float32), paths[-1], affine=mat)
+    paths = _cli_inputs(tmp, "sub", 6)
     out = os.path.join(tmp, "out")
     pull.launches = pull_grad.launches = 0
     t0 = time.perf_counter()
@@ -847,6 +879,249 @@ def phase_cli(tmp, device=None):
           f"pull {pull.launches}, pull_grad {pull_grad.launches}")
 
 
+def _counts():
+    return {"pull": pull.launches, "push": push.launches,
+            "pull_grad": pull_grad.launches}
+
+
+def _reset_counts():
+    pull.launches = push.launches = pull_grad.launches = 0
+
+
+def _bench_init(device, dim, max_iter, seed=0, **kw):
+    """``init`` of the misaligned bench workload drawn from ``seed``."""
+    _, _, chans = _bench_workload(device, dim, misaligned=True, seed=seed)
+    return unires_torch.init(chans, unires_torch.Settings(
+        device=device, vx=1.0, do_print=0, write_out=False, tolerance=0,
+        max_iter=max_iter, sched_num=3, reg_scl=4.0, do_coreg=True,
+        unified_rigid=True, scaling=True, **kw))
+
+
+def _fit_copy(init, **kw):
+    """A fit from a deep copy of ``init`` = (x, y, sett) with settings
+    ``kw``; returns (x, y, R, obj, n_iter, seconds)."""
+    x, y, sett = copy.deepcopy(init)
+    for k, v in kw.items():
+        setattr(sett, k, v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, R, _, obj, n_iter = fit_solver(x, y, sett)
+    torch.cuda.synchronize()
+    return x, y, R, obj, n_iter, time.perf_counter() - t0
+
+
+def _vol_diff(ya, yb):
+    """Largest |a - b| over the channels, relative to the largest |b|."""
+    return max(float((a.dat - b.dat).abs().max() / b.dat.abs().max())
+               for a, b in zip(ya, yb))
+
+
+def _poses(x):
+    return np.stack([o.rigid_q for xc in x for o in xc])
+
+
+def phase_resume(init, tmp, max_iter=8):
+    """8a: uninterrupted, cut with checkpoints, resumed; from one init."""
+    # the module (the package re-exports the function ``fit`` under its
+    # name); imported here as phase_cli's: scripts/cuda_kernel_times.py
+    # loads this file against older trees of the port
+    fit_mod = importlib.import_module("unires_torch.pipeline.fit")
+
+    path = os.path.join(tmp, "ckpt", "state.npz")
+    half = max_iter // 2
+    # chunk_iters = half in all three runs: the uninterrupted run then
+    # refreshes the CG preconditioner's data-term diagonals at the very
+    # iteration where the resumed one must recompute them. At the default
+    # cadence (16) it keeps those of iteration 0: that run is compared too,
+    # and its difference printed, not required.
+    xd, yd, _, obj_d, _, s_full = _fit_copy(init, max_iter=max_iter)
+    xf, yf, _, obj_f, n_f, _ = _fit_copy(init, max_iter=max_iter,
+                                         chunk_iters=half)
+    writes = []
+    save = fit_mod.save_checkpoint
+
+    def timed_save(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(*a, **kw)
+        writes.append(time.perf_counter() - t0)
+        return out
+
+    fit_mod.save_checkpoint = timed_save
+    _, _, _, obj_c, n_c, _ = _fit_copy(
+        init, max_iter=half, chunk_iters=half, checkpoint_every=2,
+        checkpoint_path=path)
+    fit_mod.save_checkpoint = save
+    require(os.path.exists(path), "no checkpoint file was written")
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    with np.load(path, allow_pickle=False) as f:
+        keys = {k: f[k].shape for k in f.files}
+    t_load = time.perf_counter() - t0
+    require(keys["obj_trace"] == (half, 3) and len(keys) == 14,
+            f"checkpoint holds {keys}")
+    xr, yr, _, obj_r, n_r, _ = _fit_copy(
+        init, max_iter=max_iter, chunk_iters=half, checkpoint_path=path,
+        resume=True)
+
+    require(n_f == n_r == max_iter and n_c == half
+            and obj_r.shape == (max_iter, 3),
+            f"n_iter full {n_f} cut {n_c} resumed {n_r}, trace {obj_r.shape}")
+    require(np.array_equal(obj_r[:half], obj_c),
+            "the resumed trace does not begin with the interrupted run's")
+    same_head = np.array_equal(obj_c, obj_f[:half])
+    rel = _rel_trace(obj_r[half:, 0], obj_f[half:, 0])
+    dvol = _vol_diff(yr, yf)
+    dq = float(np.abs(_poses(xr) - _poses(xf)).max())
+    print(f"[resume] nll uninterrupted {obj_f[:, 0].tolist()}")
+    print(f"[resume] nll resumed       {obj_r[:, 0].tolist()}")
+    print(f"[resume] rows 1-{half} of the cut run equal the uninterrupted "
+          f"run's digit for digit: {same_head} | rows {half + 1}-{max_iter} "
+          f"rel {rel:.3e} | volumes {dvol:.3e} of scale | poses max |dq| "
+          f"{dq:.3e} | checkpoint {size / 1e6:.1f} MB, {len(writes)} writes "
+          f"of {[round(w, 2) for w in writes]} s, load {t_load:.2f} s | "
+          f"{max_iter} iterations uninterrupted {s_full:.3f} s")
+    print(f"[resume] against the uninterrupted run at the default "
+          f"chunk_iters (diagonals of iteration 0 throughout): rows "
+          f"{half + 1}-{max_iter} rel "
+          f"{_rel_trace(obj_r[half:, 0], obj_d[half:, 0]):.3e} | volumes "
+          f"{_vol_diff(yr, yd):.3e} of scale | poses max |dq| "
+          f"{float(np.abs(_poses(xr) - _poses(xd)).max()):.3e}")
+    require(rel <= RESUME_TOL["trace"], f"resumed trace rel {rel}")
+    require(dvol <= RESUME_TOL["vol"], f"resumed volumes differ by {dvol}")
+    require(dq <= RESUME_TOL["pose"], f"resumed poses differ by {dq}")
+    return xd, yd, obj_d, s_full
+
+
+def phase_trace(init, tmp):
+    """8b: 2 iterations under ``profile_dir``; the trace names the kernels."""
+    d = os.path.join(tmp, "trace")
+    _, _, _, obj, n_iter, secs = _fit_copy(init, max_iter=2, profile_dir=d)
+    files = glob.glob(os.path.join(d, "*.pt.trace.json"))
+    require(len(files) == 1, f"trace files: {files}")
+    size = os.path.getsize(files[0])
+    with open(files[0]) as f:
+        text = f.read()
+    named = {k: text.count(k) for k in ("pull_kernel", "push_kernel",
+                                        "pull_grad_kernel")}
+    print(f"[trace] 2 iterations under profile_dir: {secs:.2f} s, "
+          f"{os.path.basename(files[0])} {size / 1e6:.2f} MB | mentions "
+          f"{named}")
+    require(size > 0 and n_iter == 2, "empty trace")
+    require(named["pull_kernel"] > 0 and named["push_kernel"] > 0,
+            f"the trace does not name the hand-written kernels: {named}")
+
+
+def phase_batch(init0, full0, tmp, device="cuda", dim=DIM_Y, max_iter=8):
+    """8c: two subjects through ``fit_batch`` against their single fits."""
+    from unires_torch.parallel.fit_batch import fit_batch
+
+    t0 = time.perf_counter()
+    y0 = init0[1]
+    init1 = _bench_init(device, dim, max_iter, seed=1,
+                        force_y_space=(y0[0].mat, y0[0].dim))
+    torch.cuda.synchronize()
+    print(f"[batch] subject 1 (seed 1) init on subject 0's grid "
+          f"{time.perf_counter() - t0:.2f} s")
+    xs, ys, setts = (list(t) for t in zip(*copy.deepcopy((init0, init1))))
+    setts[0].do_print = 1  # the line per round
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    syncs0 = to_host.syncs
+    t0 = time.perf_counter()
+    res = fit_batch(xs, ys, setts[0])
+    torch.cuda.synchronize()
+    s_batch = time.perf_counter() - t0
+    launches = _counts()
+    syncs = to_host.syncs - syncs0
+    peak = torch.cuda.max_memory_allocated()
+
+    _reset_counts()
+    x1, y1, _, obj1, n1, s_single = _fit_copy(init1, max_iter=max_iter)
+    single = _counts()
+    xf0, yf0, obj0, s_full0 = full0
+    for b, (xb, (yb, _, jtvb, objb, nb), xw, yw, objw, nw) in enumerate((
+            (xs[0], res[0], xf0, yf0, obj0, max_iter),
+            (xs[1], res[1], x1, y1, obj1, n1))):
+        require(nb == nw == max_iter, f"subject {b}: n_iter {nb} != {nw}")
+        require(bool(torch.isfinite(jtvb).all()), f"subject {b}: jtv")
+        rel = _rel_trace(objb[:, 0], objw[:, 0])
+        dvol = _vol_diff(yb, yw)
+        dq = float(np.abs(_poses(xb) - _poses(xw)).max())
+        print(f"[batch] subject {b} in the batch vs alone: nll "
+              f"{objb[:, 0].tolist()} | equal digit for digit "
+              f"{np.array_equal(objb, objw)} | rel {rel:.3e} | volumes "
+              f"{dvol:.3e} of scale | max |dq| {dq:.3e}")
+        require(rel <= BATCH_TOL["trace"], f"subject {b}: trace rel {rel}")
+        require(dvol <= BATCH_TOL["vol"], f"subject {b}: volumes {dvol}")
+    require(not np.array_equal(res[0][3], res[1][3]),
+            "the two subjects gave one trace")
+    ratio = {k: launches[k] / max(single[k], 1) for k in launches}
+    print(f"[batch] 2 subjects x {max_iter} iterations {s_batch:.3f} s | "
+          f"subject 1 alone {s_single:.3f} s, subject 0 alone {s_full0:.3f} s"
+          f" | batch / sum of singles {s_batch / (s_single + s_full0):.3f} | "
+          f"host syncs {syncs} ({syncs / (2 * max_iter):.1f} per subject "
+          f"iteration) | peak mem {peak / 2 ** 30:.3f} GiB | launches "
+          f"{launches}, subject 1 alone {single}, ratio "
+          f"{ {k: round(v, 2) for k, v in ratio.items()} }")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the batch never launched: {launches}")
+    require(all(1.7 <= v <= 2.3 for v in ratio.values()),
+            f"batch launches are not about twice a subject's: {ratio}")
+    return launches
+
+
+def phase_shard_cli(tmp):
+    """8c, the command line: ``--shard`` with ``--common_output`` on two
+    subjects of two 2 mm channels; a is phase 7's subject, b another noise
+    seed lying 6 mm and 0.03 rad off."""
+    from unires_torch.cli import run as cli_run
+
+    groups = [",".join(_cli_inputs(tmp, "a", 6)),
+              ",".join(_cli_inputs(tmp, "b", 7,
+                                   shift=[6.0, -4.0, 3.0, 0.03, 0.0, -0.02]))]
+    out = os.path.join(tmp, "out_shard")
+    _reset_counts()
+    t0 = time.perf_counter()
+    cli_run([*groups, "--shard", "--vx", "2.0", "--common_output",
+             "--dir_out", out, "--print_info", "0", "--tolerance", "1e-2",
+             "--sched", "0"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want_mat, want_dim = _atlas_grid(np.array([2.0, 2.0, 2.0]))
+    names = sorted(os.listdir(out))
+    require(names == ["u_a_t1.nii.gz", "u_a_t2.nii.gz", "u_b_t1.nii.gz",
+                      "u_b_t2.nii.gz"], f"wrote {names}")
+    vols = []
+    for nam in names:
+        dat, hdr = nifti_load(os.path.join(out, nam))
+        require(dat.shape == want_dim, f"{nam}: shape {dat.shape}")
+        require(np.allclose(hdr.affine, want_mat, atol=1e-4),
+                f"{nam}: affine {hdr.affine}")
+        require(bool(np.isfinite(dat).all()) and float(dat.max()) > 0,
+                f"{nam}: empty or non-finite")
+        vols.append(dat)
+    require(not np.array_equal(vols[0], vols[2]), "subjects a and b coincide")
+    print(f"[batch] unires-torch --shard a_t1,a_t2 b_t1,b_t2 --common_output "
+          f"--vx 2: {secs:.2f} s | outputs {names} {want_dim} | launches "
+          f"{_counts()}")
+
+
+def phase_long_runs(tmp, device="cuda", dim=DIM_Y, max_iter=8):
+    """Phase 8: resume, trace and batch from one init of the bench workload."""
+    t0 = time.perf_counter()
+    init0 = _bench_init(device, dim, max_iter)
+    torch.cuda.synchronize()
+    print(f"[resume] init of the misaligned workload "
+          f"{time.perf_counter() - t0:.2f} s")
+    full0 = phase_resume(init0, tmp, max_iter)
+    phase_trace(init0, tmp)
+    launches = phase_batch(init0, full0, tmp, device, dim, max_iter)
+    phase_shard_cli(tmp)
+    return launches
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -859,9 +1134,11 @@ def main():
         launches_atlas = phase_atlas(tmp)
         phase_ct_inplane(tmp)
         phase_cli(tmp)
+        launches_batch = phase_long_runs(tmp)
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], launches=launches[name],
-                    launches_atlas=launches_atlas[name], **rec[name])
+                    launches_atlas=launches_atlas[name],
+                    launches_batch=launches_batch[name], **rec[name])
                for name in ("pull", "push", "pull_grad")]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -139,3 +139,77 @@ def test_cg_batched_matches_jax(max_iter, tol):
                    return_iters=True)
     assert itt == int(itj)
     assert _rel(xt.numpy(), xj) < 1e-4
+
+
+def _spd_systems(C=3, n=50, seed=0, shift=1.0):
+    """Seeded SPD systems with different conditioning per channel."""
+    rng = np.random.default_rng(seed)
+    mats, bs, x0s = [], [], []
+    for c in range(C):
+        Q = rng.standard_normal((n, n))
+        mats.append((Q @ Q.T + (shift + 5.0 * c) * np.eye(n)).astype(
+            np.float32))
+        bs.append(rng.standard_normal(n).astype(np.float32))
+        x0s.append(rng.standard_normal(n).astype(np.float32))
+    return mats, np.stack(bs), np.stack(x0s)
+
+
+@pytest.mark.parametrize("stop,precond", [
+    ("max_gain", False), ("residual", False), ("max_gain", True),
+    ("residual", True)])
+def test_cg_matches_jax_cg(stop, precond):
+    """The unbatched solver on a seeded SPD system, both stopping rules,
+    with and without a Jacobi preconditioner: 1e-5 relative (a condition
+    number near 10, so that float32 rounding in the two packages' products
+    stays below that over the 12 steps)."""
+    from unires_torch.solvers import cg as t_cg1
+    from unires_tpu.solvers import cg as j_cg1
+
+    mats, b, x0 = _spd_systems(C=1, seed=3, shift=20.0)
+    x0 = 0.02 * x0  # a start of the solution's size: no cancellation
+    A, d = mats[0], np.diagonal(mats[0]).copy()
+    At, dt = torch.from_numpy(A), torch.from_numpy(d)
+    Aj, dj = jnp.asarray(A), jnp.asarray(d)
+    kw = dict(max_iter=12, tol=1e-3, stop=stop)
+    got = t_cg1(lambda v: At @ v, torch.from_numpy(b[0]),
+                torch.from_numpy(x0[0]),
+                precond=(lambda v: v / dt) if precond else None, **kw)
+    want = j_cg1(lambda v: Aj @ v, jnp.asarray(b[0]), jnp.asarray(x0[0]),
+                 precond=(lambda v: v / dj) if precond else None, **kw)
+    assert _rel(got.numpy(), want) < 1e-5
+    # and it solved something: the residual fell
+    r0 = np.linalg.norm(b[0] - A @ x0[0])
+    assert np.linalg.norm(b[0] - A @ got.numpy()) < 0.1 * r0
+
+
+def test_cg_residual_stop_exits_early_on_a_converged_start():
+    from unires_torch.solvers import cg as t_cg1
+    from unires_torch.utils.host import to_host
+
+    mats, b, _ = _spd_systems(C=1, seed=4)
+    A = torch.from_numpy(mats[0].astype(np.float64))
+    x_star = torch.linalg.solve(A, torch.from_numpy(b[0]).double())
+    n0 = to_host.syncs
+    got = t_cg1(lambda v: A @ v, torch.from_numpy(b[0]).double(), x_star,
+                max_iter=20, tol=1e-3, stop="residual")
+    assert to_host.syncs - n0 == 1  # one step, one stop test
+    assert _rel(got.numpy(), x_star.numpy()) < 1e-6
+
+
+@pytest.mark.parametrize("c", [0, 1, 2])
+def test_cg_batched_entry_follows_cg(c):
+    """Each batch entry of cg_batched follows the trajectory the port's
+    residual-stop cg gives it alone (tests/test_cg.py:46-70)."""
+    from unires_torch.solvers import cg as t_cg1
+
+    mats, b, x0 = _spd_systems()
+    ms = [torch.from_numpy(m) for m in mats]
+    d = torch.stack([torch.diagonal(m) for m in ms])
+    got = t_cg(lambda V: torch.stack([ms[k] @ V[k] for k in range(3)]),
+               torch.from_numpy(b), torch.from_numpy(x0), max_iter=30,
+               tol=1e-3, precond=lambda V: V / d)
+    want = t_cg1(lambda v: ms[c] @ v, torch.from_numpy(b[c]),
+                 torch.from_numpy(x0[c]), max_iter=30, tol=1e-3,
+                 precond=lambda v: v / d[c], stop="residual")
+    np.testing.assert_allclose(got[c].numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)

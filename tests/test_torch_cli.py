@@ -102,10 +102,77 @@ def test_cli_short_fit_writes_the_outputs(nifti_inputs, tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--plot_conv", "--show_jtv", "--shard"])
-def test_cli_unported_flags_parse_then_raise(nifti_inputs, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.run([nifti_inputs[0], flag, "--dir_out", str(tmp_path),
-                  "--print_info", "0", "--device", "cpu"])
+def test_cli_unported_flags_parse_then_raise(nifti_inputs, tmp_path, flag,
+                                             monkeypatch):
+    """The name dates from when these flags raised in the port. Each now
+    RUNS: a short fit of one image with the flag on writes its output
+    (``--shard``: a batch of one subject)."""
+    monkeypatch.delenv("DISPLAY", raising=False)
+    out = str(tmp_path / "out")
+    tcli.run([nifti_inputs[0], flag, "--vx", "2.0", "--dir_out", out,
+              "--print_info", "0", "--tolerance", "1e-2", "--sched", "0",
+              "--device", "cpu"])
+    assert os.listdir(out) == ["u_chan0.nii.gz"]
+    dat, _ = load(os.path.join(out, "u_chan0.nii.gz"))
+    assert np.isfinite(dat).all() and dat.max() > 0
+
+
+def _subject_files(d, n_subjects=2):
+    """Comma groups of two-channel subjects (tests/test_fit_batch.py:112)."""
+    groups = []
+    for b in range(n_subjects):
+        gt = blob_phantom(dim=(16, 16, 17), amplitude=1000.0, seed=b)
+        grp = []
+        for c, ax in enumerate((2, 1)):
+            x_obs, mat_x, _ = degrade(gt, thick_axis=ax, thick=4.0,
+                                      noise_sd=5.0, seed=b + 10 * c)
+            grp.append(str(d / f"s{b}_c{c}.nii"))
+            save(np.asarray(x_obs), grp[-1], affine=mat_x)
+        groups.append(",".join(grp))
+    return groups
+
+
+def test_cli_shard_linear_writes_what_the_jax_cli_writes(tmp_path):
+    """``--shard --linear`` with two comma groups: the file names of the JAX
+    command line (tests/test_fit_batch.py:105-125), and within each package
+    the four outputs on one grid. The volumes are not compared across the
+    packages: every subject is co-registered first (the command line has no
+    flag against it), which on volumes this small is ill-posed and ends in
+    another optimum in each package; tests/test_torch_pipeline.py compares
+    co-registration at a size where it is posed."""
+    groups = _subject_files(tmp_path)
+    out_t, out_j = str(tmp_path / "t"), str(tmp_path / "j")
+    args = ["--shard", "--linear", "--no-unified_rigid", "--print_info", "0",
+            "--device", "cpu"]
+    tcli.run(groups + args + ["--dir_out", out_t])
+    jcli.run(groups + args + ["--dir_out", out_j])
+    names = sorted(os.listdir(out_t))
+    assert names == sorted(os.listdir(out_j)) and len(names) == 4
+    assert all(n.startswith("u_") for n in names)
+    for out in (out_t, out_j):
+        dats = [load(os.path.join(out, n)) for n in names]
+        assert len({d.shape for d, _ in dats}) == 1
+        for d, hdr in dats:
+            assert d.ndim == 3 and np.isfinite(d).all() and d.max() > 0
+            np.testing.assert_allclose(hdr.affine, dats[0][1].affine,
+                                       atol=1e-5)
+
+
+def test_cli_shard_short_fit_puts_both_subjects_on_one_grid(tmp_path):
+    groups = _subject_files(tmp_path)
+    out = str(tmp_path / "out")
+    tcli.run(groups + ["--shard", "--dir_out", out, "--print_info", "0",
+                       "--tolerance", "1e-2", "--sched", "0", "--device",
+                       "cpu"])
+    names = sorted(os.listdir(out))
+    assert names == ["u_s0_c0.nii", "u_s0_c1.nii", "u_s1_c0.nii",
+                     "u_s1_c1.nii"]
+    dats = [load(os.path.join(out, n)) for n in names]
+    assert len({d.shape for d, _ in dats}) == 1
+    for d, hdr in dats:
+        assert np.isfinite(d).all() and d.max() > 0
+        np.testing.assert_array_equal(hdr.affine, dats[0][1].affine)
+    assert not np.array_equal(dats[0][0], dats[2][0])
 
 
 def test_cli_cuda_without_a_card_raises(nifti_inputs, tmp_path):

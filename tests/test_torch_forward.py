@@ -60,3 +60,50 @@ def test_check_adjoint(name):
     assert abs(diff) <= 1e-5 * abs(lhs)
     want = unires_tpu.check_adjoint(pj, method, seed=3)[1]
     assert abs(lhs - want) <= 1e-5 * abs(want)
+
+
+def _ops_2d():
+    mat2 = np.eye(3)
+    mat2[1, 1] = 4.0  # thick y axis, ratio 4
+    kw2 = dict(dim_y=(64, 64), mat_y=np.eye(3), dim_x=(64, 16), mat_x=mat2,
+               prof_ip=2, prof_tp=0, scl=0.1)
+    mat3 = np.eye(4)
+    mat3[1, 1] = 4.0
+    kw3 = dict(dim_y=(64, 64, 1), mat_y=np.eye(4), dim_x=(64, 16, 1),
+               mat_x=mat3, prof_ip=2, prof_tp=0, scl=0.1)
+    return kw2, kw3
+
+
+def test_2d_operator_proj_info_and_adjoint():
+    """2D inputs through proj_info/forward, as tests/test_forward.py:99-127:
+    the 2D operator is the degenerate-Z 3D chain."""
+    kw2, _ = _ops_2d()
+    pt, pj = unires_torch.proj_info(**kw2), unires_tpu.proj_info(**kw2)
+    assert pt.dim_y == (64, 64, 1) and pt.dim_x == (64, 16, 1)
+    assert pt.ratio == (1, 4, 1) and pt.dim_thick == 1
+    for f in ("dim_y", "dim_x", "dim_yx", "ratio", "dim_thick"):
+        assert getattr(pt, f) == getattr(pj, f), f
+    for f in ("mat_y", "mat_x", "mat_yx", "vx_x", "vx_y", "smo_ker", "rigid"):
+        np.testing.assert_allclose(getattr(pt, f), getattr(pj, f),
+                                   rtol=0, atol=1e-12, err_msg=f)
+    diff, scale = unires_torch.check_adjoint(pt, "super-resolution")
+    assert abs(diff) <= 1e-4 * abs(scale)
+
+
+@pytest.mark.parametrize("operator", ["A", "At", "AtA"])
+def test_2d_operator_proj_apply(operator):
+    """proj_apply of the 2D operator equals the JAX package's to 1e-5 and
+    the explicitly built (X, Y, 1) 3D operator's to 1e-6."""
+    kw2, kw3 = _ops_2d()
+    p2, p3 = unires_torch.proj_info(**kw2), unires_torch.proj_info(**kw3)
+    pj = unires_tpu.proj_info(**kw2)
+    shape = p2.dim_x if operator == "At" else p2.dim_y
+    dat = np.random.default_rng(0).random(shape, dtype=np.float32)
+    m = "super-resolution"
+    a2 = unires_torch.proj_apply(operator, torch.from_numpy(dat), p2, m).numpy()
+    a3 = unires_torch.proj_apply(operator, torch.from_numpy(dat), p3, m).numpy()
+    want = np.asarray(unires_tpu.proj_apply(operator, jnp.asarray(dat), pj, m))
+    assert a2.shape == want.shape
+    assert np.allclose(a2, a3, atol=1e-6)
+    np.testing.assert_allclose(a2, want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))

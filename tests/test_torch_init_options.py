@@ -296,14 +296,20 @@ def test_init_common_output_matches_jax(tmp_path):
 
 
 def test_atlas_options_no_longer_raise_and_the_rest_still_do():
-    from unires_torch.settings import check_supported
+    """The name dates from when six settings raised in the port. None does
+    any more: ``settings.check_supported`` is gone, and ``init`` takes every
+    one of them on a small volume."""
+    import unires_torch.settings as tsett
 
-    check_supported(unires_torch.Settings(
-        do_atlas_align=True, atlas_rigid=False, common_output=True,
-        do_res_origin=True, force_inplane_res=True,
-        label=("l.nii.gz", (0, 0))))
+    assert not hasattr(tsett, "check_supported")
+    assert not hasattr(tsett, "_UNPORTED")
+    dat = blob_phantom(dim=(8, 8, 9), amplitude=1000.0, seed=1)
     for extra in (dict(checkpoint_every=5), dict(resume=True),
                   dict(shard="batch"), dict(profile_dir="p"),
                   dict(plot_conv=True), dict(show_jtv=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_supported(unires_torch.Settings(**extra))
+        sett = unires_torch.Settings(device="cpu", do_print=0, max_iter=0,
+                                     write_out=False, **extra)
+        x, y, sett = unires_torch.init([[dat, np.eye(4)]], sett)
+        (name, value), = extra.items()
+        assert getattr(sett, name) == value
+        assert tuple(y[0].dat.shape) == tuple(y[0].dim)

@@ -1,15 +1,15 @@
 """Command-line front-end of the port, flag-compatible with
 ``unires_tpu.cli`` and the reference (unires/_cli.py:59-249): same flag
 names, defaults and --no- pairs. ``--device`` names a torch device, ``cuda``
-(default) or ``cpu``; ``cuda`` without a card raises. The flags of what the
-port does not cover yet (``--plot_conv``, ``--show_jtv``, ``--shard``) parse
-and then raise through ``settings.check_supported``.
+(default) or ``cpu``; ``cuda`` without a card raises. With ``--shard`` each
+positional argument is one subject, its channels separated by commas, and
+the subjects are fitted as one batch (``pipeline.run.preproc_batch``).
 """
 from __future__ import annotations
 
 from argparse import ArgumentParser
 
-from .pipeline.run import preproc
+from .pipeline.run import preproc, preproc_batch
 from .settings import Settings
 
 
@@ -53,8 +53,11 @@ def _preproc(pth, atlas_rigid, common_output, denoising, device, dir_out, fov,
         s.vx = 0
     s.shard = shard
 
-    # batch mode (shard: one subject per positional argument) is not ported:
-    # preproc raises for it through check_supported
+    if shard:
+        # batch mode (the reference fits one subject per call): each
+        # positional argument is ONE subject, its channels comma-separated
+        subjects = [p.split(",") if "," in p else [p] for p in pth]
+        return preproc_batch(subjects, s)
     return preproc(pth, s)
 
 
@@ -132,10 +135,10 @@ def build_parser() -> ArgumentParser:
                              "runs), none.")
     parser.add_argument("--shard", type=str, nargs="?", const="batch",
                         default="", choices=("", "batch"),
-                        help="Shard a multi-subject batch over the device "
-                             "mesh; each positional argument is then one "
+                        help="Fit a multi-subject batch over the CUDA "
+                             "devices; each positional argument is then one "
                              "subject with its channels comma-separated, "
-                             "e.g. unires --shard a_t1.nii,a_t2.nii "
+                             "e.g. unires-torch --shard a_t1.nii,a_t2.nii "
                              "b_t1.nii,b_t2.nii [default=off].")
     _bool_pair(parser, "write_out", s.write_out,
                "Write reconstructed output images")

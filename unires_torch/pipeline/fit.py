@@ -3,12 +3,19 @@
 Mirrors ``unires_tpu.pipeline.fit`` (reference ``fit``, unires/run.py:24-207):
 lambda schedule with countdowns, gain-based convergence, optional even/odd
 scaling and unified rigid updates, FOV cleaning and rigid-matrix collection.
-One outer iteration per step (``solvers.fitloop.make_fit_iteration``). The
-JAX package's window re-plans have no counterpart: the CUDA kernels take any
-affine, so a drifted pose never needs another program.
+One outer iteration per step (``solvers.fitloop.make_fit_iteration``),
+held by a per-subject stepper (:class:`FitRun`) that ``parallel.fit_batch``
+shares. Around the loop: checkpoint / resume (``pipeline.checkpoint``), a
+``torch.profiler`` trace (``Settings.profile_dir``) and the matplotlib
+dashboards (``utils.plots``). The JAX package's window re-plans have no
+counterpart: the CUDA kernels take any affine, so a drifted pose never needs
+another program.
 """
 from __future__ import annotations
 
+import contextlib
+import os
+import time
 from timeit import default_timer as timer
 
 import numpy as np
@@ -16,10 +23,11 @@ import torch
 
 from ..geometry import fov_centre, rigid_from_q
 from ..ops.resample import affine_to_M, pull
-from ..settings import check_supported
 from ..solvers.admm import step_size
 from ..solvers.fitloop import FitState, init_state, make_fit_iteration
 from ..utils.log import info
+from ..utils.plots import plot_convergence, require_matplotlib, show_slices
+from .checkpoint import load_checkpoint, restore_into, save_checkpoint
 from .structs import XData, YData
 
 
@@ -103,61 +111,197 @@ def _sync_state(x, y, sett, state: FitState) -> None:
         y[c].lam = float(reg[min(state.cnt_scl, reg.size - 1)]) * y[c].lam0
 
 
+class FitRun:
+    """One subject's fit as a stepper: ``step()`` runs one outer iteration
+    and appends its objective to ``obj_trace``; ``finish()`` writes the loop
+    state back into the structs and returns what ``fit`` returns.
+
+    ``fit`` drives one of these to the end; ``parallel.fit_batch`` holds one
+    per subject and steps them in turn. Each owns its iteration closure
+    (``solvers.fitloop.make_fit_iteration`` caches per-observation tensors on
+    the subject's device), so no two subjects share one.
+    """
+
+    def __init__(self, x: XData, y: YData, sett, state: FitState = None,
+                 obj_trace=None):
+        self.x, self.y = x, y
+        self.N = sum(len(xc) for xc in x)
+        self.sett = sett = get_sched(self.N, sett)
+        self.obj_trace = list(obj_trace) if obj_trace is not None else []
+        self.state = None
+        if state is None:
+            # schedule position 0
+            reg = np.atleast_1d(np.asarray(sett.reg_scl, np.float64))
+            for yc in y:
+                yc.lam = float(reg[0]) * yc.lam0
+        if sett.max_iter > 0:
+            info(sett, "step-size", step_size(x, y, sett))
+            self.state = state if state is not None else init_state(x, y, sett)
+            self.iterate = make_fit_iteration(x, y, sett)
+            self.xdats = [[o.dat for o in xc] for xc in x]
+            self.subdats = _gather_subdats(x, self.iterate.subs)
+
+    @property
+    def live(self) -> bool:
+        st = self.state
+        return (st is not None and not st.done
+                and st.n_iter < self.sett.max_iter)
+
+    def step(self):
+        """One outer iteration; returns (obj (3,), gain)."""
+        self.state, obj, gain = self.iterate(self.state, self.xdats,
+                                             self.subdats)
+        self.obj_trace.append(obj)
+        return obj, gain
+
+    def sync(self) -> None:
+        _sync_state(self.x, self.y, self.sett, self.state)
+
+    def finish(self, clean: bool = True):
+        """(y, R, jtv, obj_trace, n_iter) with the structs brought up to
+        date; ``clean`` applies ``Settings.clean_fov``."""
+        x, y, sett = self.x, self.y, self.sett
+        jtv = None
+        if self.state is not None:
+            self.sync()
+            jtv = self.state.jtv
+        if clean and sett.clean_fov:
+            clean_fov(x, y)
+        # rigid matrices (reference run.py:195-200): centre-conjugated world
+        # transforms of the fitted pose parameters
+        R = np.stack([np.eye(4)] * self.N)
+        centre = fov_centre(y[0].mat, y[0].dim)
+        for i, o in enumerate(o for xc in x for o in xc):
+            if o.rigid_q is not None and sett.rigid_basis is not None:
+                R[i] = rigid_from_q(o.rigid_q, sett.rigid_basis, centre)
+        trace = (np.asarray(self.obj_trace) if self.obj_trace
+                 else np.zeros((0, 3)))
+        return y, R, jtv, trace, len(self.obj_trace)
+
+
+def _resume_state(x, y, sett):
+    """(state, obj_trace) from ``sett.checkpoint_path``: the volumes, poses
+    and scales of the file in a fresh loop state, the counters as saved
+    (``n_iter`` is stored as iterations done - 1), and the gain's running
+    values rebuilt from the saved trace. The saved rho is not read back
+    (the step size follows from the restored lam), and ``cdiags`` stays
+    None: the first iteration recomputes the preconditioner's data-term
+    diagonals from the restored poses."""
+    z, w, st = restore_into(load_checkpoint(sett.checkpoint_path), x, y,
+                            torch.device(sett.device))
+    state = init_state(x, y, sett)
+    state.z, state.w = z, w
+    tr = np.asarray(st["obj_trace"], np.float64).reshape(-1, 3)
+    state.cnt_scl = st["cnt_scl"]
+    state.cnt_scl_iter = st["cnt_scl_iter"]
+    state.countdown0 = st["countdown0"]
+    state.countdown1 = st["countdown1"]
+    state.n_iter = st["n_iter"] + 1
+    if tr.size:
+        state.prev_obj = float(tr[-1, 0])
+        state.obj_max = float(tr[:, 0].max())
+        state.obj_min = float(tr[:, 0].min())
+        state.has_prev = True
+    return state, st["obj_trace"]
+
+
+def _save_state(run: FitRun) -> None:
+    run.sync()  # y[c].lam at the current schedule position, q, scl, ys
+    st, sett = run.state, run.sett
+    save_checkpoint(sett.checkpoint_path, run.x, run.y, st.z, st.w, dict(
+        rho=step_size(run.x, run.y, sett), cnt_scl=st.cnt_scl,
+        cnt_scl_iter=st.cnt_scl_iter, n_iter=st.n_iter - 1,
+        countdown0=st.countdown0, countdown1=st.countdown1,
+        obj_trace=np.asarray(run.obj_trace)))
+
+
+@contextlib.contextmanager
+def profile_trace(sett):
+    """Trace everything inside the block with ``torch.profiler`` (host
+    operators and, on a card, the CUDA kernels, the hand-written ones under
+    their own names) when ``sett.profile_dir`` is set, and write a Chrome /
+    Perfetto trace ``unires_fit_<pid>_<ms>.pt.trace.json`` there when the
+    block ends, by an exception too. The whole block is traced: a long fit
+    gives a large file."""
+    if not sett.profile_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(sett.profile_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.device(sett.device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            sett.profile_dir,
+            f"unires_fit_{os.getpid()}_{int(time.time() * 1e3)}"
+            ".pt.trace.json"))
+
+
+def _dashboards(run: FitRun) -> None:
+    """The optional figures, once per outer iteration (the JAX loop draws
+    them once per chunk): the per-channel slices of verbosity 3, the
+    convergence plot and the JTV field (reference run.py:90-99)."""
+    sett, st = run.sett, run.state
+    if sett.do_print >= 3:
+        for c in range(len(run.y)):
+            show_slices(st.ys[c], title=f"y (channel {c}) @ iter {st.n_iter}",
+                        fig_num=60 + c)
+    if sett.plot_conv:
+        plot_convergence(np.asarray(run.obj_trace))
+    if sett.show_jtv:
+        show_slices(st.jtv, title="JTV", fig_num=98, cmap="coolwarm")
+
+
 def fit(x: XData, y: YData, sett, state: FitState = None):
     """Run the iterative solver; returns (y, R, jtv, obj_trace, n_iter).
 
     Output writing is the caller's job (``pipeline.run.fit``). ``state``
     continues a fit from a given loop state (``pipeline.convert``) instead
     of a fresh one.
+
+    With ``checkpoint_every`` > 0 and a ``checkpoint_path`` the solver state
+    is saved after every ``checkpoint_every``-th iteration of this call (the
+    JAX loop looks once per chunk of ``chunk_iters`` iterations, so it saves
+    at the first chunk end at least that far on). With ``resume`` and an
+    existing file the fit continues from it, and the returned trace and
+    ``n_iter`` count the iterations before the checkpoint too; without the
+    file it starts fresh.
     """
-    N = sum(len(xc) for xc in x)
-    C = len(x)
-    check_supported(sett)
-    sett = get_sched(N, sett)
-
-    # schedule position 0
-    reg = np.atleast_1d(np.asarray(sett.reg_scl, np.float64))
-    for c in range(C):
-        y[c].lam = float(reg[0]) * y[c].lam0
-
-    jtv = None
-    obj_trace = []
-    R = np.stack([np.eye(4)] * N)
-    if sett.max_iter > 0:
-        info(sett, "step-size", step_size(x, y, sett))
-        if state is None:
-            state = init_state(x, y, sett)
-        iterate = make_fit_iteration(x, y, sett)
-        xdats = [[o.dat for o in xc] for xc in x]
-        subdats = _gather_subdats(x, iterate.subs)
-        t00 = info(sett, "fit-start", C, N)
-        while not state.done and state.n_iter < sett.max_iter:
-            t_it = timer()
-            state, obj, gain = iterate(state, xdats, subdats)
-            obj_trace.append(obj)
-            info(sett, "fit-ll", state.n_iter - 1, obj, gain, t_it)
-            if sett.do_print >= 2:  # reference verbosity 2 (_util.py:107-129)
-                _sync_state(x, y, sett, state)
-                info(sett, "reg-param", x)
-                info(sett, "scl-param", x)
-        if state.done:
-            info(sett, "fit-finish", t00, state.n_iter - 1)
-        _sync_state(x, y, sett, state)
-        jtv = state.jtv
-
-    if sett.clean_fov:
-        clean_fov(x, y)
-
-    # rigid matrices (reference run.py:195-200): centre-conjugated world
-    # transforms of the fitted pose parameters
-    centre = fov_centre(y[0].mat, y[0].dim)
-    cnt = 0
-    for c in range(C):
-        for o in x[c]:
-            if o.rigid_q is not None and sett.rigid_basis is not None:
-                R[cnt] = rigid_from_q(o.rigid_q, sett.rigid_basis, centre)
-            cnt += 1
-
-    n_done = len(obj_trace)
-    return (y, R, jtv, np.asarray(obj_trace) if obj_trace else np.zeros((0, 3)),
-            n_done)
+    prior = None
+    if (state is None and sett.max_iter > 0 and sett.resume
+            and sett.checkpoint_path
+            and os.path.exists(sett.checkpoint_path)):
+        state, prior = _resume_state(x, y, sett)
+    run = FitRun(x, y, sett, state, prior)
+    sett = run.sett
+    if run.state is not None:
+        require_matplotlib(sett)
+        t00 = info(sett, "fit-start", len(x), run.N)
+        last_ckpt = run.state.n_iter
+        with profile_trace(sett):
+            while run.live:
+                t_it = timer()
+                obj, gain = run.step()
+                n_done = run.state.n_iter
+                info(sett, "fit-ll", n_done - 1, obj, gain, t_it)
+                if sett.do_print >= 2:  # reference verbosity 2 (_util.py:107-129)
+                    run.sync()
+                    info(sett, "reg-param", x)
+                    info(sett, "scl-param", x)
+                if sett.do_print >= 3:
+                    info(sett, "fit-done", t_it)
+                _dashboards(run)
+                if (sett.checkpoint_every > 0 and sett.checkpoint_path
+                        and n_done - last_ckpt >= sett.checkpoint_every):
+                    _save_state(run)
+                    last_ckpt = n_done
+        if run.state.done:
+            info(sett, "fit-finish", t00, run.state.n_iter - 1)
+    return run.finish()

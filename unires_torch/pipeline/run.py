@@ -1,4 +1,5 @@
-"""Pipeline entry points: init / fit / preproc (reference unires/run.py).
+"""Pipeline entry points: init / fit / preproc (reference unires/run.py) and
+their batch-of-subjects forms, fit_batch / preproc_batch.
 
 Data flow as ``unires_tpu.pipeline.run``: read NIfTI (host) -> volumes on
 ``Settings.device`` -> hyper-parameter estimation -> registration init ->
@@ -15,7 +16,7 @@ import torch
 
 from ..geometry import affine_basis, voxel_size
 from ..ops.resample import affine_to_M, pull
-from ..settings import Settings, check_supported
+from ..settings import Settings
 from ..utils.log import info
 from .fit import fit as _fit
 from .format_y import (format_y, init_y_dat, init_y_label, proj_info_add,
@@ -209,7 +210,6 @@ def init(data, sett: Optional[Settings] = None):
         if sett.pow == 0:
             sett.pow = 256
     x = read_data(data, sett)
-    check_supported(sett)
     if sett.max_iter > 0:
         x = estimate_hyperpar(x, sett)
     x = fix_affine(x, sett)
@@ -293,3 +293,49 @@ def preproc(data, sett: Optional[Settings] = None):
     x, y, sett = init(data, sett)
     dat_y, mat_y, pth_y, _, _, _ = fit(x, y, sett)
     return dat_y, mat_y, pth_y
+
+
+def fit_batch(xs, ys, setts):
+    """Multi-subject fit + write (no reference analog: the reference fits
+    one subject at a time).
+
+    ``xs``/``ys``/``setts``: per-subject struct lists from :func:`init`.
+    The solve runs data-parallel over the CUDA devices
+    (``parallel.fit_batch``), each subject through the full per-subject
+    algorithm, so results match per-subject :func:`fit` runs. Returns a list
+    of (dat_y, mat_y, pth_y, R, label, pth_label) per subject.
+    """
+    from ..parallel.fit_batch import fit_batch as _fit_batch
+
+    results = _fit_batch(xs, ys, setts[0])
+    out = []
+    for x, sett, (y, R, jtv, obj, n_iter) in zip(xs, setts, results):
+        dat_y, pth_y, label, pth_label = write_data(x, y, sett, jtv=jtv)
+        out.append((dat_y, y[0].mat, pth_y, R, label, pth_label))
+    return out
+
+
+def preproc_batch(subjects, sett: Optional[Settings] = None):
+    """One-call batch API: init every subject, fit the batch, write every.
+
+    ``subjects``: list of per-subject inputs (each as :func:`preproc`'s
+    ``data``). Requires a geometry-homogeneous batch (same acquisition
+    protocol; ``parallel.fit_batch.check_homogeneous`` raises otherwise).
+    Returns a list of (dat_y, mat_y, pth_y) per subject.
+    """
+    sett = sett if sett is not None else Settings()
+    if not sett.shard:
+        sett.shard = "batch"
+    inits = []
+    for data in subjects:
+        # init mutates settings (method, schedule, rigid basis): one copy
+        # per subject. Subjects 1.. reconstruct on subject 0's output grid
+        # so the batch is geometry-homogeneous (with common_output all
+        # subjects land on the atlas grid already).
+        sb = sett.copy()
+        if inits and not sett.common_output:
+            y0 = inits[0][1]
+            sb.force_y_space = (y0[0].mat, y0[0].dim)
+        inits.append(init(data, sb))
+    res = fit_batch(*(list(t) for t in zip(*inits)))
+    return [(dat_y, mat_y, pth_y) for dat_y, mat_y, pth_y, _, _, _ in res]

@@ -1,9 +1,8 @@
 """Algorithm settings (reference: unires/struct.py:57-111).
 
 Every field name and default of ``unires_tpu.settings`` is kept, except
-``device``, which names a torch device and defaults to ``"cuda"``. Settings
-the port does not cover yet raise ``NotImplementedError`` when a run reaches
-them (:func:`check_supported`).
+``device``, which names a torch device and defaults to ``"cuda"``. Every
+field is honoured, or documented below as read by the JAX package only.
 
 Flag names and defaults are kept identical to the reference ``settings``
 class so a UniRes user can port call-sites unchanged. Fields documented as
@@ -98,9 +97,10 @@ class Settings:
     # the CG preconditioner's data-term diagonal is recomputed
     chunk_iters: int = 16
     shard: str = ""  # multi-device sharding (not in the reference): ""
-    # = off; "batch" fits a batch of subjects data-parallel in the JAX
-    # package (not ported yet)
-    profile_dir: Optional[str] = None  # write a profiler trace of fit here
+    # = off; "batch" marks a run of ``preproc_batch`` / ``--shard``: a batch
+    # of subjects fitted data-parallel over the CUDA devices
+    profile_dir: Optional[str] = None  # write a torch.profiler trace of fit
+    # here (Chrome / Perfetto JSON)
 
     # checkpoint/resume (not in the reference, SURVEY §5 rebuild note)
     checkpoint_every: int = 0  # save solver state every N iterations (0=off)
@@ -122,25 +122,3 @@ class Settings:
 
 # Backwards-friendly alias matching the reference class name.
 settings = Settings
-
-
-# Settings this port does not cover yet, and the ROADMAP item that brings
-# each (queue 1 unless stated). A run that reaches one raises: none of them
-# may silently change the computation.
-_UNPORTED = (
-    ("checkpoint_every", "queue 1, item 13 (checkpoint)"),
-    ("resume", "queue 1, item 13 (checkpoint)"),
-    ("shard", "queue 1, item 13 (parallel)"),
-    ("profile_dir", "queue 1, item 13 (profiling)"),
-    ("plot_conv", "queue 1, item 13 (plots)"),
-    ("show_jtv", "queue 1, item 13 (plots)"),
-)
-
-
-def check_supported(sett) -> None:
-    """Raise NotImplementedError for a setting the port does not cover yet."""
-    for name, item in _UNPORTED:
-        if getattr(sett, name):
-            raise NotImplementedError(
-                f"Settings.{name} is not ported to unires_torch yet "
-                f"(ROADMAP {item})")

@@ -1,7 +1,16 @@
-"""Batched preconditioned conjugate gradients with a per-channel residual stop.
+"""Matrix-free preconditioned conjugate gradients: ``cg`` for one system
+(max-gain or residual stop) and ``cg_batched`` over a leading (channel)
+axis with a per-entry residual stop.
 
-The iteration of ``unires_tpu.solvers.cg.cg_batched``: every batch (channel)
-entry follows the trajectory a lone residual-stop PCG would give it —
+``cg`` re-implements nitorch.core.optim.cg as the reference's y-update calls
+it (unires/_update.py:140-148: 20 iterations, stop='max_gain', tol 1e-3),
+after ``unires_tpu.solvers.cg.cg``. Gain (nitorch get_gain): gain_k =
+(f_{k-1} - f_k) / (max f - min f) over the objective trace f_k = 1/2 x^T A x
+- b^T x, tracked by a running max and min.
+
+``cg_batched`` is the iteration of ``unires_tpu.solvers.cg.cg_batched``:
+every batch (channel) entry follows the trajectory ``cg(..., stop=
+'residual')`` would give it alone —
 per-entry alpha/beta from inner products over the volume axes, entries that
 reach their stopping residual are FROZEN (alpha = 0, p and rz held) while the
 rest iterate — and the operator and preconditioner act on the whole stack.
@@ -19,6 +28,58 @@ from typing import Callable, Optional
 import torch
 
 from ..utils.host import to_host
+
+
+def cg(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
+       x0: torch.Tensor, max_iter: int = 20, tol: float = 1e-3,
+       precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+       stop: str = "max_gain") -> torch.Tensor:
+    """Solve A x = b for SPD matrix-free A, starting at x0.
+
+    stop='max_gain' mirrors the reference (objective gain normalised by the
+    trace's own range; it rarely fires on warm starts, so it effectively
+    runs max_iter, like the reference). stop='residual' exits when the
+    preconditioned residual energy <r, P r> drops below tol^2 of <b, P b>:
+    an absolute criterion, so warm starts that are already converged exit
+    after one iteration. Either test reads one flag from the device per
+    step.
+    """
+    if precond is None:
+        precond = lambda v: v  # noqa: E731
+
+    def dot(a, c):
+        return torch.sum(a * c)
+
+    tiny = 1e-30
+    x = x0
+    r = b - A(x)
+    p = precond(r)
+    rz = dot(r, p)
+    if stop == "residual":
+        ref = (tol * tol) * torch.clamp(dot(b, precond(b)), min=tiny)
+    # objective f = 1/2 x^T A x - b^T x = -1/2 (<x, b> + <x, r>)
+    f_prev = f_max = f_min = -0.5 * (dot(x, b) + dot(x, r))
+    for it in range(max_iter):
+        Ap = A(p)
+        alpha = rz / torch.clamp(dot(p, Ap), min=tiny)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = dot(r, z)
+        p = z + (rz_new / torch.clamp(rz, min=tiny)) * p
+        rz = rz_new
+        if stop == "residual":
+            done = rz_new < ref
+        else:
+            f = -0.5 * (dot(x, b) + dot(x, r))
+            f_max = torch.maximum(f_max, f)
+            f_min = torch.minimum(f_min, f)
+            gain = (f_prev - f) / torch.clamp(f_max - f_min, min=tiny)
+            done = (gain.abs() < tol) & (it >= 1)
+            f_prev = f
+        if bool(to_host(done)):
+            break
+    return x
 
 
 def cg_batched(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
