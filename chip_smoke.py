@@ -20,7 +20,11 @@ Phases, each printing its lines:
    and the kernel's share of it, and the one PyTorch call that computes
    the same function (``grid_sample``, ``grid_sampler_3d_backward``)
    checked against the plain version, with its ms and the kernel / library
-   ratio; adjointness through the kernels.
+   ratio; adjointness through the kernels. Then the kernels' ``fov``
+   override (their FOV = true instantiation): pull and push at the fit's
+   map with bounds narrower and wider than the volume, and at the maps and
+   bounds of the one-slab spatial steps (the extended slab with its halo of
+   zero rows at each end), each bitwise equal to its plain version.
 4. Small slices, each fitted on the card and on the CPU (plain versions)
    with the objective traces compared: a pre-aligned 2-channel problem, and
    a misaligned one with co-registration, unified rigid and even/odd
@@ -58,11 +62,29 @@ Phases, each printing its lines:
    reset before the batch and read after it; then ``--shard`` with
    ``--common_output`` on two subjects of two 2 mm channels each.
 
+9. Converged quality: the misaligned ``bench.py`` workload fitted to its
+   tolerance of 1e-4 (coreg, unified rigid, scaling, ``sched_num=3``,
+   ``reg_scl=4.0``); requires PSNR >= 23.5 dB and sr_vs_trilinear <= 0.70.
+10. The multi-device solvers on the one card, at full width: the
+   pre-aligned phantom, every channel thick along z, through
+   ``init_multihost`` on NCCL with a world of 1: (a) the (batch, channel)
+   sharded step (B = 1, C = 3) and (b) the one-slab denoising and
+   super-resolution spatial steps (no message; the extended slab's zero
+   rows put the kernels' FOV bounds to work), 3 iterations each (CG 60 /
+   1e-6; the denoising step, on observations at a shifted and rotated
+   pose, is printed at that depth and held at 200 / 1e-8), against
+   ``make_admm_step`` on the card. The counters are set to 0 just before
+   each spatial step's iterations and read just after: each step must
+   launch pull and push, every launch through FOV = true.
+
 The line before the last holds the kernels' JSON record (``launches`` from
 the misaligned run, ``launches_atlas`` from phase 6, ``launches_batch`` from
-phase 8's ``fit_batch``), the one before it the
-card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``. Any failure raises: nothing is caught.
+phase 8's ``fit_batch``, ``launches_converged`` from phase 9,
+``launches_parallel`` and ``launches_parallel_fov`` (the FOV = true ones)
+summed over phase 10's two spatial steps; ``fov`` the FOV = true cases of
+phase 3), the one before it the card's name and power limit; the last line
+is ``{"ok": true, "device": {...}}``. Any failure raises: nothing is
+caught.
 """
 import copy
 import functools
@@ -82,6 +104,7 @@ import torch.nn.functional as F
 
 import unires_torch
 import unires_torch.pipeline.run as run_mod
+from unires_torch.cli import run as cli_run
 from unires_torch.geometry import (affine_basis, affine_diag,
                                    affine_matrix_classic, bb_atlas, ceil_pow,
                                    expm, rigid_log, voxel_size)
@@ -91,7 +114,9 @@ from unires_torch.ops import cuda_build
 from unires_torch.ops.resample import (_as_map, _fov_mask, _sample_coords,
                                        affine_to_M, pull, pull_grad,
                                        pull_grad_plain, pull_plain, push,
-                                       push_plain)
+                                       push_plain, push_window)
+from unires_torch.parallel.spatial import (slab_maps, spatial_halo_bound,
+                                           sr_halo_bounds)
 from unires_torch.pipeline.convert import convert_state
 from unires_torch.pipeline.fit import fit as fit_solver
 from unires_torch.pipeline.nifti import load as nifti_load
@@ -99,6 +124,9 @@ from unires_torch.pipeline.nifti import save as nifti_save
 from unires_torch.pipeline.run import write_data
 from unires_torch.utils.host import to_host
 from unires_torch.utils.phantoms import brain_phantom
+
+# the module (the package re-exports the function ``fit`` under its name)
+fit_mod = importlib.import_module("unires_torch.pipeline.fit")
 
 DIM_Y = (181, 217, 181)
 # a yardstick against the plain version: max abs error <= YARDSTICK_TOL *
@@ -139,6 +167,22 @@ RESUME_TOL = dict(trace=1e-4, vol=1e-3, pose=1e-4)
 # a subject in a batch against the same subject alone (one stream: the same
 # launches in the same order)
 BATCH_TOL = dict(trace=1e-6, vol=1e-5)
+# the quality floor at convergence (PERF.md, section 2)
+PSNR_FLOOR, RATIO_CEIL = 23.5, 0.70
+# the parallel steps against make_admm_step, as the CPU tests hold them: the
+# sharded step (ys of its scale, z and w absolute, objective relative), and
+# the slab steps, whose slab-local preconditioner stops CG elsewhere
+SHARDED_TOL = dict(ys=2e-3, zw=1e-3, obj=2e-3)
+SLAB_TOL = dict(ys=5e-3, zw=2e-2, obj=1e-2)
+# FOV bounds of phase 3 in the fit's recon voxels: inside the volume on
+# every axis, and beyond it (off the sample points' knife-edges)
+# the denoising observations' rigid pose in phase 10: a shift and a small
+# rotation (tests/test_spatial.py's shift)
+DENOISE_POSE = [0.8, -0.5, 0.3, 0.01, -0.008, 0.006]
+FOV_NARROW = np.array([[20.3, 160.7], [15.2, 200.4], [10.6, 170.3]],
+                      np.float32)
+FOV_WIDE = np.array([[-3.3, 183.6], [-2.7, 219.2], [-4.1, 184.4]],
+                    np.float32)
 SOURCE = "unires_torch/csrc/resample.cu"
 # the Pallas kernels each CUDA kernel replaces (shear variant first; the
 # JAX fit runs it): pull also :219, push also :673, pull_grad also :328
@@ -233,17 +277,18 @@ def _max_err(got, want, scale, name, tol=0.0):
     return err
 
 
-def norm_grid(M, in_dim, out_dim, device):
+def norm_grid(M, in_dim, out_dim, device, fov=None):
     """``grid_sample``'s grid (align_corners=True, axes reversed) of the
     sample points g = M (i, j, k, 1) of an ``out_dim`` grid in an ``in_dim``
-    volume, and the points' FOV mask."""
+    volume, and the points' FOV mask (``fov``: (3, 2) bounds, or the
+    default [-0.5, n - 0.5])."""
     g = _sample_coords(_as_map(M), out_dim, device)
     grid = torch.stack([2.0 * g[d] / (in_dim[d] - 1) - 1.0 for d in (2, 1, 0)],
                        dim=-1)[None]
-    return grid, _fov_mask(g, in_dim)
+    return grid, _fov_mask(g, in_dim, fov)
 
 
-def yardstick(name, inp, M, out_dim):
+def yardstick(name, inp, M, out_dim, fov=None):
     """The one PyTorch call that computes kernel ``name``'s function (order
     1) on the same inputs: its library yardstick, which the port never
     calls. Everything but that call is built here, outside the timed window.
@@ -251,13 +296,13 @@ def yardstick(name, inp, M, out_dim):
     the plain version's layout."""
     dev = inp.device
     if name == "push":  # pull^T: scatter the FOV-masked values (atomicAdd)
-        grid, fov = norm_grid(M, out_dim, tuple(inp.shape), dev)
+        grid, fov = norm_grid(M, out_dim, tuple(inp.shape), dev, fov)
         gout = (inp * fov)[None, None]
         like = torch.zeros((1, 1) + tuple(out_dim), device=dev)
         return (lambda: torch.ops.aten.grid_sampler_3d_backward(
                     gout, like, grid, 0, 0, True, [True, False])[0],
                 lambda r: r[0, 0], "grid_sampler_3d_backward (input grad)")
-    grid, fov = norm_grid(M, tuple(inp.shape), out_dim, dev)
+    grid, fov = norm_grid(M, tuple(inp.shape), out_dim, dev, fov)
     if name == "pull":
         return (lambda: F.grid_sample(inp[None, None], grid, mode="bilinear",
                                       padding_mode="zeros",
@@ -366,66 +411,130 @@ def kernel_cases(device="cuda"):
     ]
 
 
+def fov_kernel_cases(device="cuda"):
+    """The FOV = true cases of phase 3, as ``kernel_cases``: pull and push
+    at the fit's map with ``fov`` narrower and wider than the volume, and
+    at the maps and bounds of the one-slab spatial steps of phase 10 (the
+    denoising step on a recon-grid observation at the fit's pose, and the
+    super-resolution step), whose inputs carry the slab's halo of zero rows
+    at each end."""
+    rng = np.random.default_rng(3)
+    po, M, Minv = fit_case()
+
+    def rand(dim):
+        return torch.from_numpy(rng.random(dim, dtype=np.float32)).to(device)
+
+    def halo(v, h):
+        pad = v.new_zeros((h,) + tuple(v.shape[1:]))
+        return torch.cat([pad, v, pad])
+
+    vol_y, vals, vol_x = rand(DIM_Y), rand(po.dim_yx), rand(DIM_Y)
+    po_d = proj_info(DIM_Y, np.eye(4), DIM_Y, np.eye(4), rigid=po.rigid)
+    M_d, Minv_d = obs_dyn_args(po_d, "denoising")
+    H = spatial_halo_bound(po_d, "denoising")
+    den = slab_maps(M_d, Minv_d, DIM_Y, 0, -H, -H, 0)
+    Hp, Hq = sr_halo_bounds(po, 1)
+    sr = slab_maps(M, Minv, DIM_Y, 0, -Hp, -Hq, 0)
+    return [
+        ("pull", "fov_narrow", vol_y, M, po.dim_yx, dict(fov=FOV_NARROW)),
+        ("pull", "fov_wide", vol_y, M, po.dim_yx, dict(fov=FOV_WIDE)),
+        ("pull", "slab_den", halo(vol_y, H), den["Ml"], DIM_Y,
+         dict(fov=den["fov_pull"])),
+        ("pull", "slab_sr", halo(vol_y, Hp), sr["Ml"], po.dim_yx,
+         dict(fov=sr["fov_pull"])),
+        ("push", "fov_narrow", vals, M, DIM_Y,
+         dict(Minv=Minv, fov=FOV_NARROW)),
+        ("push", "fov_wide", vals, M, DIM_Y, dict(Minv=Minv, fov=FOV_WIDE)),
+        ("push", "slab_den", halo(vol_x, H), den["Mp"], DIM_Y,
+         dict(Minv=den["Mpi"], window=push_window(M_d),
+              fov=den["fov_push"])),
+        ("push", "slab_sr", halo(vals, Hq), sr["Mp"], DIM_Y,
+         dict(Minv=sr["Mpi"], window=push_window(M), fov=sr["fov_push"])),
+    ]
+
+
+FUNCS = {"pull": (pull, pull_plain), "push": (push, push_plain),
+         "pull_grad": (pull_grad, pull_grad_plain)}
+
+
+def _measure(name, case, inp, Mc, out_dim, kw):
+    """One case of phase 3: the kernel against its plain version (exact),
+    its times, its bound and its library yardstick. Prints a line and
+    returns the record."""
+    kern_fn, plain_fn = FUNCS[name]
+    kern = lambda: kern_fn(inp, Mc, out_dim, **kw)  # noqa: E731
+    plain = lambda: plain_fn(inp, Mc, out_dim, **kw)  # noqa: E731
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    label = f"{name}/{case}"
+    # every kernel repeats its plain version's roundings: exact
+    err = _max_err(got, want, float(inp.abs().max()), label)
+    require(float(want.abs().max()) > 0.0, f"{label}: plain result is 0")
+    ms, plain_ms, host_ms = _time_ms(kern), _time_ms(plain), _host_ms(kern)
+    order = kw.get("order", 1)
+    bnd, bound_by = bound_ms(name, inp, out_dim, order)
+    # bytes: the input volume once and the output once (bench.py:169)
+    gbps = 4.0 * (inp.numel() + np.prod(got.shape)) / (ms * 1e-3) / 1e9
+    line = (f"[kernels] {label}: max_abs_err {err:.3e} | kernel "
+            f"{ms:.4f} ms (host {host_ms:.4f} ms) | plain {plain_ms:.4f} "
+            f"ms | {gbps:.1f} GB/s | "
+            f"bound {bnd:.4f} ms ({bound_by}) | share {bnd / ms:.1%}")
+    lib_ms = lib_call = None
+    if order == 1:
+        call, to_plain, lib_call = yardstick(name, inp, Mc, out_dim,
+                                             kw.get("fov"))
+        lib = to_plain(call())
+        sel = (off_knots(Mc, out_dim, inp.device)[..., None]
+               if name == "pull_grad" else torch.ones_like(got, dtype=bool))
+        lib_err = float(((lib - want) * sel).abs().max())
+        lib_tol = YARDSTICK_TOL * float(want.abs().max())
+        require(lib_err <= lib_tol, f"{label}: yardstick {lib_call} err "
+                f"{lib_err} > {lib_tol}")
+        lib_ms = _time_ms(call)
+        line += (f" | {lib_call} {lib_ms:.4f} ms (err {lib_err:.3e}) | "
+                 f"kernel/library {ms / lib_ms:.3f}")
+    print(line)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                bound_by=bound_by, library_ms=lib_ms, library_call=lib_call)
+
+
+def _adjoint(cases, tag, **fov):
+    """<pull u, v> = <u, push v> through the kernels at the fit's map."""
+    by_case = {(c[0], c[1]): c[2:] for c in cases}
+    vol_y, M, dim_yx, _ = by_case["pull", tag]
+    vals, _, _, push_kw = by_case["push", tag]
+    lhs = float((pull(vol_y, M, dim_yx, **fov).double() * vals.double())
+                .sum())
+    rhs = float((vol_y.double() * push(vals, M, DIM_Y, **push_kw).double())
+                .sum())
+    rel = abs(lhs - rhs) / abs(lhs)
+    print(f"[kernels] adjoint ({tag}) <pull u, v> {lhs:.10e} <u, push v> "
+          f"{rhs:.10e} rel {rel:.3e}")
+    require(rel <= ADJOINT_TOL, f"adjointness rel {rel} > {ADJOINT_TOL}")
+
+
 def phase_kernels(device="cuda"):
     """Each kernel against its plain version at the main path's shapes, with
-    its bound and its library yardstick."""
+    its bound and its library yardstick; then pull and push with the fov
+    override."""
     cases = kernel_cases(device)
     print("[kernels] " + " | ".join(
         f"{name}/{case} {tuple(inp.shape)} -> {tuple(out_dim)}"
         for name, case, inp, _, out_dim, _ in cases))
-    funcs = {"pull": (pull, pull_plain), "push": (push, push_plain),
-             "pull_grad": (pull_grad, pull_grad_plain)}
     rec = {}
-    for name, case, inp, Mc, out_dim, kw in cases:
-        kern_fn, plain_fn = funcs[name]
-        kern = lambda: kern_fn(inp, Mc, out_dim, **kw)  # noqa: E731
-        plain = lambda: plain_fn(inp, Mc, out_dim, **kw)  # noqa: E731
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        label = f"{name}/{case}"
-        # every kernel repeats its plain version's roundings: exact
-        err = _max_err(got, want, float(inp.abs().max()), label)
-        require(float(want.abs().max()) > 0.0, f"{label}: plain result is 0")
-        ms, plain_ms, host_ms = _time_ms(kern), _time_ms(plain), _host_ms(kern)
-        order = kw.get("order", 1)
-        bnd, bound_by = bound_ms(name, inp, out_dim, order)
-        # bytes: the input volume once and the output once (bench.py:169)
-        gbps = 4.0 * (inp.numel() + np.prod(got.shape)) / (ms * 1e-3) / 1e9
-        line = (f"[kernels] {label}: max_abs_err {err:.3e} | kernel "
-                f"{ms:.4f} ms (host {host_ms:.4f} ms) | plain {plain_ms:.4f} "
-                f"ms | {gbps:.1f} GB/s | "
-                f"bound {bnd:.4f} ms ({bound_by}) | share {bnd / ms:.1%}")
-        lib_ms = lib_call = None
-        if order == 1:
-            call, to_plain, lib_call = yardstick(name, inp, Mc, out_dim)
-            lib = to_plain(call())
-            sel = (off_knots(Mc, out_dim, inp.device)[..., None]
-                   if name == "pull_grad" else torch.ones_like(got, dtype=bool))
-            lib_err = float(((lib - want) * sel).abs().max())
-            lib_tol = YARDSTICK_TOL * float(want.abs().max())
-            require(lib_err <= lib_tol, f"{label}: yardstick {lib_call} err "
-                    f"{lib_err} > {lib_tol}")
-            lib_ms = _time_ms(call)
-            line += (f" | {lib_call} {lib_ms:.4f} ms (err {lib_err:.3e}) | "
-                     f"kernel/library {ms / lib_ms:.3f}")
-        print(line)
-        if case == "fit":
-            rec[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bnd, bound_by=bound_by,
-                             library_ms=lib_ms, library_call=lib_call)
+    for c in cases:
+        r = _measure(*c)
+        if c[1] == "fit":
+            rec[c[0]] = r
+    _adjoint(cases, "fit")
 
-    # adjointness through the kernels at the fit's map: <pull u, v> =
-    # <u, push v>
-    by_case = {(c[0], c[1]): c[2:] for c in cases}
-    vol_y, M, dim_yx, _ = by_case["pull", "fit"]
-    vals, _, _, push_kw = by_case["push", "fit"]
-    lhs = float((pull(vol_y, M, dim_yx).double() * vals.double()).sum())
-    rhs = float((vol_y.double() * push(vals, M, DIM_Y, **push_kw).double())
-                .sum())
-    rel = abs(lhs - rhs) / abs(lhs)
-    print(f"[kernels] adjoint <pull u, v> {lhs:.10e} <u, push v> {rhs:.10e} "
-          f"rel {rel:.3e}")
-    require(rel <= ADJOINT_TOL, f"adjointness rel {rel} > {ADJOINT_TOL}")
+    cases = fov_kernel_cases(device)
+    print("[kernels] fov: " + " | ".join(
+        f"{name}/{case} {tuple(inp.shape)} -> {tuple(out_dim)} fov "
+        f"{kw['fov'].tolist()}" for name, case, inp, _, out_dim, kw in cases))
+    for c in cases:
+        rec[c[0]].setdefault("fov", {})[c[1]] = _measure(*c)
+    _adjoint(cases, "fov_narrow", fov=FOV_NARROW)
     return rec
 
 
@@ -849,10 +958,6 @@ def _cli_inputs(tmp, name, seed, shift=None):
 def phase_cli(tmp, device=None):
     """The command line on the card (its default device): two 2 mm channels,
     displaced, through ``--common_output``; outputs read back."""
-    # imported here: scripts/cuda_kernel_times.py loads this file against
-    # older trees of the port, which have no command line
-    from unires_torch.cli import run as cli_run
-
     paths = _cli_inputs(tmp, "sub", 6)
     out = os.path.join(tmp, "out")
     pull.launches = pull_grad.launches = 0
@@ -884,8 +989,13 @@ def _counts():
             "pull_grad": pull_grad.launches}
 
 
+def _fov_counts():
+    return {"pull": pull.fov_launches, "push": push.fov_launches}
+
+
 def _reset_counts():
     pull.launches = push.launches = pull_grad.launches = 0
+    pull.fov_launches = push.fov_launches = 0
 
 
 def _bench_init(device, dim, max_iter, seed=0, **kw):
@@ -922,11 +1032,6 @@ def _poses(x):
 
 def phase_resume(init, tmp, max_iter=8):
     """8a: uninterrupted, cut with checkpoints, resumed; from one init."""
-    # the module (the package re-exports the function ``fit`` under its
-    # name); imported here as phase_cli's: scripts/cuda_kernel_times.py
-    # loads this file against older trees of the port
-    fit_mod = importlib.import_module("unires_torch.pipeline.fit")
-
     path = os.path.join(tmp, "ckpt", "state.npz")
     half = max_iter // 2
     # chunk_iters = half in all three runs: the uninterrupted run then
@@ -1076,7 +1181,6 @@ def phase_shard_cli(tmp):
     """8c, the command line: ``--shard`` with ``--common_output`` on two
     subjects of two 2 mm channels; a is phase 7's subject, b another noise
     seed lying 6 mm and 0.03 rad off."""
-    from unires_torch.cli import run as cli_run
 
     groups = [",".join(_cli_inputs(tmp, "a", 6)),
               ",".join(_cli_inputs(tmp, "b", 7,
@@ -1122,6 +1226,199 @@ def phase_long_runs(tmp, device="cuda", dim=DIM_Y, max_iter=8):
     return launches
 
 
+def phase_converged(smi, device="cuda", dim=DIM_Y):
+    """Phase 9: the misaligned bench.py workload fitted to convergence."""
+    gts, _, chans = _bench_workload(device, dim, misaligned=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    x, y, sett = unires_torch.init(chans, unires_torch.Settings(
+        device=device, vx=1.0, do_print=0, write_out=False, tolerance=1e-4,
+        sched_num=3, reg_scl=4.0, do_coreg=True, unified_rigid=True,
+        scaling=True))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    tri = y[0].dat.clone()
+    t0 = time.perf_counter()
+    y, R, jtv, obj, n_iter = fit_solver(x, y, sett)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    psnr, ratio = _quality(y, gts[0], tri, device)
+    print(f"[converged] {smi} | dims {tuple(y[0].dim)} x 3, tolerance 1e-4 "
+          f"| init {t_init:.3f} s | fit {t_fit:.3f} s, n_iter {n_iter}, "
+          f"{t_fit / n_iter:.4f} s/iter | nll first {obj[0, 0]:.6e} last "
+          f"{obj[-1, 0]:.6e} | psnr {psnr:.3f} dB | sr_vs_trilinear "
+          f"{ratio:.4f} | peak mem {peak / 2 ** 30:.3f} GiB | launches "
+          f"{launches}")
+    require(n_iter < sett.max_iter, f"no convergence in {n_iter} iterations")
+    require(bool(torch.isfinite(jtv).all()) and np.isfinite(R).all(),
+            "non-finite result")
+    require(psnr >= PSNR_FLOOR and ratio <= RATIO_CEIL,
+            f"quality floor missed: psnr {psnr} dB, sr_vs_trilinear {ratio}")
+    return launches
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _adiff(a, b):
+    return float((a - b).abs().max())
+
+
+def _step_diff(got, want, tol, label):
+    """(ys of scale, max |dz|, max |dw|, objective rel) between a parallel
+    step's (ys, z, w, obj) and make_admm_step's; raises past ``tol``."""
+    ys, z, w, obj = got
+    ys0, z0, w0, obj0 = want
+    d = (_rel(ys, ys0), _adiff(z, z0), _adiff(w, w0),
+         float(((obj - obj0).abs() / obj0.abs()).max()))
+    print(f"[parallel] {label} vs make_admm_step: ys {d[0]:.3e} of scale | "
+          f"z {d[1]:.3e} | w {d[2]:.3e} | obj rel {d[3]:.3e}")
+    require(d[0] <= tol["ys"] and d[1] <= tol["zw"] and d[2] <= tol["zw"]
+            and d[3] <= tol["obj"], f"{label} differs from make_admm_step")
+
+
+def _run_steps(step, state, args, iters):
+    """``iters`` steps from ``state`` = (ys, z, w) with the other operands
+    ``args`` = (xdat, ...); returns the last (ys, z, w, obj) and s/iter."""
+    ys, z, w = state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        ys, z, w, *rest = step(ys, z, w, *args)
+    torch.cuda.synchronize()
+    return (ys, z, w, rest[-1]), (time.perf_counter() - t0) / iters
+
+
+def phase_parallel(tmp, smi, device="cuda", dim=DIM_Y, iters=3):
+    """Phase 10: the sharded and spatial steps on one card (world 1)."""
+    import torch.distributed as dist
+
+    from unires_torch.models.forward import make_obs_ops
+    from unires_torch.parallel.sharding import (build_mesh, init_multihost,
+                                                make_sharded_admm_step,
+                                                shard_state)
+    from unires_torch.parallel.spatial import (build_spatial_mesh,
+                                               make_spatial_admm_step,
+                                               make_spatial_admm_step_sr,
+                                               shard_spatial)
+    from unires_torch.solvers.admm import (admm_aux, make_admm_step,
+                                           step_size)
+
+    print(f"[parallel] torch.distributed NCCL available: "
+          f"{dist.is_nccl_available()}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    init_multihost(f"file://{os.path.join(tmp, 'rendezvous')}", 1, 0,
+                   device=device)
+    try:
+        rng = np.random.default_rng(4)
+        gts = [_phantom(c, dim) for c in ("t1", "t2", "pd")]
+        chans = [_degrade(g, 2, 75.0, rng, device) for g in gts]
+        x, y, sett = unires_torch.init(chans, _settings(device, iters, 0))
+        # CG to the spatial tests' depth: the slab preconditioner then
+        # stops near the global one's iterate (tests/test_spatial.py)
+        sett.cgs_max_iter, sett.cgs_tol = 60, 1e-6
+        po = x[0][0].po
+        require(all(np.array_equal(o.po.M_sr(), po.M_sr())
+                    and o.po.dim_x == po.dim_x for xc in x for o in xc),
+                "the channels' geometries differ")
+        C, dim_y = len(y), tuple(y[0].dim)
+        ys = torch.stack([yc.dat for yc in y])
+        z, w = admm_aux(C, dim_y, device)
+        xdat = torch.stack([xc[0].dat for xc in x])
+        tau = [xc[0].tau for xc in x]
+        lam = [yc.lam for yc in y]
+        rho = step_size(x, y, sett)
+        M, Minv = obs_dyn_args(po, "super-resolution")
+
+        # the reference: make_admm_step, the unsharded solver
+        ref = make_admm_step(x, y, sett)
+        want, s_ref = _run_steps(ref, (ys, z, w), (
+            [[xc[0].dat] for xc in x], [[M]] * C, [[Minv]] * C,
+            [[0.0]] * C, [[t] for t in tau], lam, rho), iters)
+
+        # (a) the (batch, channel) sharded step, B = 1 and C = 3
+        mesh = build_mesh(1)
+        step = make_sharded_admm_step(po, sett.method, sett, mesh)
+        st = shard_state(mesh, ys[None], z[None], w[None], xdat[None])
+        got, s_sh = _run_steps(step, st[:3], (
+            st[3], M, Minv, np.zeros((1, C)), np.asarray([tau]),
+            np.asarray([lam]), rho), iters)
+        _step_diff((got[0][0], got[1][0], got[2][0], got[3]), want,
+                   SHARDED_TOL, f"sharded (mesh {mesh.shape})")
+
+        # (b) the one-slab spatial steps, each counted on its own: the
+        # counters are set to 0 just before its steps and read just after
+        smesh = build_spatial_mesh(1)
+        step_sr = make_spatial_admm_step_sr(po, sett, smesh)
+        st = shard_spatial(smesh, ys, z, w, xdat)[:3]
+        _reset_counts()
+        got, s_sr = _run_steps(step_sr, st, (xdat, M, Minv, [0.0] * C, tau,
+                                             lam, rho), iters)
+        launches = {"SR": (_counts(), _fov_counts())}
+        _step_diff(got, want, SLAB_TOL, "spatial SR (1 slab)")
+
+        # the denoising chain: observations on the recon grid at a shift
+        # and a small rotation. Its CG runs deeper: at 60 steps the
+        # slab-local and the global preconditioners stop at different
+        # iterates (printed, not required), at 200 / 1e-8 both reach the
+        # solution
+        po_d = proj_info(dim_y, y[0].mat, dim_y, y[0].mat,
+                         rigid=affine_matrix_classic(DENOISE_POSE))
+        M_d, Minv_d = obs_dyn_args(po_d, "denoising")
+        A_d = make_obs_ops(po_d, "denoising")[0]
+        xd = torch.stack([A_d(yc.dat, M_d, Minv_d, 0.0) for yc in y])
+        x_d = [[copy.copy(xc[0])] for xc in x]
+        for c, xc in enumerate(x_d):
+            xc[0].po, xc[0].dat = po_d, xd[c]
+        ref_args = ([[xd[c]] for c in range(C)], [[M_d]] * C, [[Minv_d]] * C,
+                    [[0.0]] * C, [[t] for t in tau], lam, rho)
+        slab_args = (xd, M_d, Minv_d, tau, lam, rho)
+        sett_d = sett.copy()
+        sett_d.method = "denoising"
+        shallow = (
+            _run_steps(make_admm_step(x_d, y, sett_d), (ys, z, w), ref_args,
+                       iters)[0],
+            _run_steps(make_spatial_admm_step(po_d, sett_d, smesh),
+                       (ys, z, w), slab_args, iters)[0])
+        print(f"[parallel] spatial denoising (1 slab) vs make_admm_step at "
+              f"CG {sett_d.cgs_max_iter} / {sett_d.cgs_tol:g} (not "
+              f"required): ys {_rel(shallow[1][0], shallow[0][0]):.3e} of "
+              f"scale | z {_adiff(shallow[1][1], shallow[0][1]):.3e} | w "
+              f"{_adiff(shallow[1][2], shallow[0][2]):.3e}")
+        sett_d.cgs_max_iter, sett_d.cgs_tol = 200, 1e-8
+        want_d, s_ref_d = _run_steps(make_admm_step(x_d, y, sett_d),
+                                     (ys, z, w), ref_args, iters)
+        step_den = make_spatial_admm_step(po_d, sett_d, smesh)
+        _reset_counts()
+        got, s_den = _run_steps(step_den, (ys, z, w), slab_args, iters)
+        launches["denoising"] = (_counts(), _fov_counts())
+        _step_diff(got, want_d, SLAB_TOL,
+                   f"spatial denoising (1 slab) at CG {sett_d.cgs_max_iter} "
+                   f"/ {sett_d.cgs_tol:g}")
+        for label, (n, n_fov) in launches.items():
+            # every pull and push of a slab step carries the global FOV
+            require(all(n[k] > 0 and n_fov[k] == n[k] for k in n_fov),
+                    f"spatial {label}: pull and push must each launch, all "
+                    f"through FOV = true: launches {n}, FOV = true {n_fov}")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[parallel] {smi} | {C} x {dim_y}, {iters} iterations, s/iter: "
+              f"make_admm_step SR {s_ref:.4f}, sharded {s_sh:.4f}, spatial "
+              f"SR {s_sr:.4f} | make_admm_step denoising {s_ref_d:.4f}, "
+              f"spatial denoising {s_den:.4f} | launches (all, FOV = true) "
+              f"{launches} | peak mem {peak / 2 ** 30:.3f} GiB")
+    finally:
+        dist.destroy_process_group()
+    return {k: (sum(n[k] for n, _ in launches.values()),
+                sum(f.get(k, 0) for _, f in launches.values()))
+            for k in ("pull", "push", "pull_grad")}
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1135,10 +1432,16 @@ def main():
         phase_ct_inplane(tmp)
         phase_cli(tmp)
         launches_batch = phase_long_runs(tmp)
+        launches_converged = phase_converged(smi)
+        launches_parallel = phase_parallel(tmp, smi)
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], launches=launches[name],
                     launches_atlas=launches_atlas[name],
-                    launches_batch=launches_batch[name], **rec[name])
+                    launches_batch=launches_batch[name],
+                    launches_converged=launches_converged[name],
+                    launches_parallel=launches_parallel[name][0],
+                    launches_parallel_fov=launches_parallel[name][1],
+                    **rec[name])
                for name in ("pull", "push", "pull_grad")]
     print(json.dumps({"kernels": kernels}))
     print(smi)

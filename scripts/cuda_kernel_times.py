@@ -3,14 +3,14 @@ on one card.
 
     python3 scripts/cuda_kernel_times.py [--tree PATH] [--label NAME]
 
-Imports ``unires_torch`` from ``--tree`` (default: this checkout), so that
-the kernels of two commits (for example an unpacked ``git archive`` of the
-parent) are timed by the same code in one call. The cases
-(``kernel_cases``) and the timing (``_time_ms``: CUDA events around each
-call, L2 flushed before it; ``_host_ms``: synchronised calls as a caller
-sees them) are this checkout's ``chip_smoke.py``'s. For each case it
-prints the max abs difference between kernel and plain version
-(must be 0), the kernel's device ms per call three times, and its host ms.
+Loads ``--tree``'s own ``chip_smoke.py`` (default: this checkout), which
+binds that tree's ``unires_torch``, so that the kernels of two commits (for
+example an unpacked ``git archive`` of the parent) are timed in one call,
+each by its own cases (``kernel_cases``) and timing (``_time_ms``: CUDA
+events around each call, L2 flushed before it; ``_host_ms``: synchronised
+calls as a caller sees them). For each case it prints the max abs
+difference between kernel and plain version (must be 0), the kernel's
+device ms per call three times, and its host ms.
 """
 import argparse
 import importlib.util
@@ -26,9 +26,10 @@ def main():
     ap.add_argument("--tree", default=str(HERE))
     ap.add_argument("--label", default="this")
     args = ap.parse_args()
-    sys.path.insert(0, str(Path(args.tree).resolve()))
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
     spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  HERE / "chip_smoke.py")
+                                                  tree / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)  # binds the tree's unires_torch
 

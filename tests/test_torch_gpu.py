@@ -8,10 +8,13 @@ package, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 
 Tolerances: every kernel vs its plain version exact (the same roundings in
-the same order); adjointness relative 1e-5; objective
+the same order), with and without the ``fov`` override and an explicit push
+window; adjointness relative 1e-5; objective
 traces relative 1e-4 (float32 sums in another order), 1e-3 with the rigid
 and scaling updates on (they feed the sums' differences back into the fit);
-co-registration card vs CPU 0.1 mm / 2e-3.
+co-registration card vs CPU 0.1 mm / 2e-3; the sharded step on a world of
+one (NCCL) against ``make_admm_step`` as tests/test_torch_sharding.py holds
+it (ys 2e-3 of scale, z and w 1e-3, objective rtol 2e-3).
 """
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ import torch
 import unires_torch
 from chip_smoke import centred_map
 from unires_torch.geometry import affine_diag, affine_matrix_classic
+from unires_torch.models.forward import make_obs_ops, obs_dyn_args
 from unires_torch.models.proj_op import proj_info
 from unires_torch.ops import resample as tr
 from unires_torch.pipeline.convert import convert_state
@@ -186,3 +190,128 @@ def test_card_misaligned_fit_matches_cpu_fit(cuda):
     assert tr.pull_grad.launches > n0
     _, _, _, obj_c, _ = fit(x, y, s)
     np.testing.assert_allclose(obj_g, obj_c, rtol=1e-3)
+
+
+# the fov override: bounds narrower and wider than IN_DIM (in its voxels)
+FOVS = [
+    ("narrow", np.array([[1.2, 10.7], [2.3, 11.4], [0.8, 14.1]], np.float32)),
+    ("wide", np.array([[-2.3, 15.6], [-1.7, 16.2], [-3.1, 18.4]], np.float32)),
+]
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("fov_name,fov", FOVS)
+@pytest.mark.parametrize("name,mat,out_dim", MAPS)
+def test_fov_kernels_match_plain(cuda, name, mat, out_dim, fov_name, fov,
+                                 order):
+    vol = _vol(IN_DIM, 11, cuda)
+    vals = _vol(out_dim, 12, cuda)
+    M = tr.affine_to_M(mat)
+    got_pull = tr.pull(vol, M, out_dim, order=order, fov=fov)
+    got_push = tr.push(vals, M, IN_DIM, order=order, fov=fov)
+    torch.cuda.synchronize()
+    want_pull = tr.pull_plain(vol, M, out_dim, order=order, fov=fov)
+    want_push = tr.push_plain(vals, M, IN_DIM, order=order, fov=fov)
+    assert float((got_pull - want_pull).abs().max()) == 0.0
+    assert float((got_push - want_push).abs().max()) == 0.0
+    lhs = float((got_pull.double() * vals.double()).sum())
+    rhs = float((got_push.double() * vol.double()).sum())
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+@pytest.mark.parametrize("name,mat,out_dim", MAPS)
+def test_push_window_kernel_matches_plain(cuda, name, mat, out_dim):
+    """The default window, the same given explicitly, and the anchor alone
+    (which drops mass): each exact."""
+    vals = _vol(out_dim, 13, cuda)
+    M = tr.affine_to_M(mat)
+    default = tr.push(vals, M, IN_DIM)
+    assert torch.equal(default, tr.push(vals, M, IN_DIM,
+                                        window=tr.push_window(M)))
+    small = tr.push(vals, M, IN_DIM, window=(0, 0, 0))
+    torch.cuda.synchronize()
+    want = tr.push_plain(vals, M, IN_DIM, window=(0, 0, 0))
+    assert float((small - want).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("rank", [0, 1, 3])
+def test_slab_maps_kernels_match_plain(cuda, rank):
+    """The maps and bounds of one of 4 slabs of the denoising spatial step,
+    on an extended slab whose halo rows hold values (an end slab's lie
+    outside the global FOV): exact."""
+    from unires_torch.parallel.spatial import slab_maps, spatial_halo_bound
+
+    dim = (64, 12, 13)
+    po = proj_info(dim, np.eye(4), dim, np.eye(4),
+                   rigid=affine_matrix_classic([0.8, -0.5, 0.3, 0.02, -0.01,
+                                                0.015]))
+    M, Minv = obs_dyn_args(po, "denoising")
+    H = spatial_halo_bound(po, "denoising")
+    Xl = dim[0] // 4
+    x0 = rank * Xl
+    mp = slab_maps(M, Minv, dim, x0, x0 - H, x0 - H, x0)
+    ext = _vol((Xl + 2 * H,) + dim[1:], 14 + rank, cuda)
+    loc = (Xl,) + dim[1:]
+    window = tr.push_window(M)
+    got = (tr.pull(ext, mp["Ml"], loc, fov=mp["fov_pull"]),
+           tr.push(ext, mp["Mp"], loc, Minv=mp["Mpi"], window=window,
+                   fov=mp["fov_push"]))
+    torch.cuda.synchronize()
+    want = (tr.pull_plain(ext, mp["Ml"], loc, fov=mp["fov_pull"]),
+            tr.push_plain(ext, mp["Mp"], loc, Minv=mp["Mpi"], window=window,
+                          fov=mp["fov_push"]))
+    for g, w in zip(got, want):
+        assert float(w.abs().max()) > 0
+        assert float((g - w).abs().max()) == 0.0
+
+
+def test_sharded_step_world_of_one(cuda, tmp_path):
+    """make_sharded_admm_step through NCCL on one rank (B = 1, C = 2)
+    against make_admm_step, on the card."""
+    import types
+
+    import torch.distributed as dist
+
+    from unires_torch.parallel.sharding import (build_mesh, init_multihost,
+                                                make_sharded_admm_step,
+                                                shard_state)
+    from unires_torch.solvers.admm import make_admm_step
+
+    dim_y, dim_x = (16, 16, 17), (16, 16, 5)
+    po = proj_info(dim_y, np.eye(4), dim_x, affine_diag([1, 1, 4]),
+                   rigid=affine_matrix_classic([0.4, -0.2, 0.1]),
+                   prof_ip=2, prof_tp=0)
+    sett = unires_torch.Settings(do_print=0, cgs_max_iter=8, cgs_tol=1e-9,
+                                 vx=1.0, device="cuda")
+    sett.method, sett.do_proj = "super-resolution", True
+    M, Minv = obs_dyn_args(po, sett.method)
+    A = make_obs_ops(po, sett.method)[0]
+    gt = torch.from_numpy(np.random.default_rng(0).random(
+        (2,) + dim_y, dtype=np.float32) * 100).to(cuda)
+    xd = torch.stack([A(g, M, Minv, 0.0) for g in gt])
+    ys, z, w = gt * 0.5, torch.zeros((2, 3) + dim_y, device=cuda), \
+        0.05 * torch.ones((2, 3) + dim_y, device=cuda)
+    x = [[types.SimpleNamespace(po=po, tau=0.5, ct=False)] for _ in range(2)]
+    y = [types.SimpleNamespace(dat=None, dim=dim_y, mat=np.eye(4), lam=0.1,
+                               lam0=0.1) for _ in range(2)]
+    want = make_admm_step(x, y, sett)(
+        ys, z, w, [[xd[0]], [xd[1]]], [[M]] * 2, [[Minv]] * 2,
+        [[0.0]] * 2, [[0.5]] * 2, [0.1, 0.1], 1.3)
+    init_multihost(f"file://{tmp_path / 'rendezvous'}", 1, 0, device="cuda")
+    try:
+        mesh = build_mesh(1)
+        step = make_sharded_admm_step(po, sett.method, sett, mesh)
+        st = shard_state(mesh, ys[None], z[None], w[None], xd[None])
+        n0 = (tr.pull.launches, tr.push.launches)
+        got = step(*st, M, Minv, np.zeros((1, 2)), np.full((1, 2), 0.5),
+                   np.full((1, 2), 0.1), 1.3)
+        torch.cuda.synchronize()
+        assert tr.pull.launches > n0[0] and tr.push.launches > n0[1]
+    finally:
+        dist.destroy_process_group()
+    scale = float(want[0].abs().max())
+    assert float((got[0][0] - want[0]).abs().max()) <= 2e-3 * scale
+    assert float((got[1][0] - want[1]).abs().max()) <= 1e-3
+    assert float((got[2][0] - want[2]).abs().max()) <= 1e-3
+    np.testing.assert_allclose(got[3].cpu().numpy(), want[4].cpu().numpy(),
+                               rtol=2e-3)

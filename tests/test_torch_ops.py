@@ -1,9 +1,13 @@
 """unires_torch's small operators against unires_tpu's.
 
-im_gradient / im_divergence (three difference types), the polyphase strided
-blur and its adjoint, and the even/odd scaling, on the same numpy-made
-inputs. Tolerance rtol 1e-6 (float32, the same operations in the same order);
-adjoint pairs to relative 1e-5 of the inner product.
+im_gradient / im_divergence and DtD (three difference types), the
+polyphase strided blur and its adjoint, the dense-kernel blur pair, the
+even/odd scaling and slice groups, and the ADMM tables (DCT and Fourier
+membrane eigenvalues, the zero z / w), on the same numpy-made inputs.
+Tolerance rtol 1e-6 (float32, the same operations in the same order); the
+dense blur, whose taps the port sums in another order than XLA's
+convolution, rtol 1e-5; the tables exact; adjoint pairs to relative 1e-5 of
+the inner product.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -12,11 +16,15 @@ import torch
 
 from unires_torch.ops import conv as tconv
 from unires_torch.ops import finite_diff as tfd
+from unires_torch.ops import scaling as tscaling
 from unires_torch.ops.scaling import apply_scaling as t_apply_scaling
+from unires_torch.solvers import admm as tadmm
 from unires_tpu.kernels import kernel_1d
 from unires_tpu.ops import conv as jconv
 from unires_tpu.ops import finite_diff as jfd
+from unires_tpu.ops import scaling as jscaling
 from unires_tpu.ops.scaling import apply_scaling as j_apply_scaling
+from unires_tpu.solvers import admm as jadmm
 
 torch.set_num_threads(2)
 
@@ -86,3 +94,61 @@ def test_scaling_matches_jax(axis):
     v = _vol(DIM, 5)
     _adjoint(u, got, v, t_apply_scaling(torch.from_numpy(v), float(scl),
                                         axis).numpy())
+
+
+@pytest.mark.parametrize("which", ["forward", "backward", "central"])
+def test_dtd_matches_jax(which):
+    u = _vol(DIM, 6)
+    got = tfd.DtD(torch.from_numpy(u), VX, which).numpy()
+    _close(got, np.asarray(jfd.DtD(jnp.asarray(u), jnp.asarray(VX), which)))
+
+
+DENSE = [  # (kernel shape, ratio, output grid): 3D, and 2D
+    ((3, 2, 5), (2, 1, 3), (5, 8, 4)),
+    ((3, 4), (2, 3), (6, 5)),
+]
+
+
+@pytest.mark.parametrize("kshape,ratio,n_out", DENSE)
+def test_dense_blur_matches_jax_and_is_adjoint(kshape, ratio, n_out):
+    ker = np.random.default_rng(7).random(kshape).astype(np.float32)
+    dim_in = tuple((n - 1) * r + k for n, r, k in zip(n_out, ratio, kshape))
+    u = _vol(dim_in, 8)
+    v = _vol(n_out, 9)
+    down = tconv.blur_down(torch.from_numpy(u), ker, ratio).numpy()
+    up = tconv.blur_up(torch.from_numpy(v), ker, ratio).numpy()
+    assert down.shape == n_out and up.shape == dim_in
+    for got, want in (
+            (down, jconv.blur_down(jnp.asarray(u), jnp.asarray(ker), ratio)),
+            (up, jconv.blur_up(jnp.asarray(v), jnp.asarray(ker), ratio))):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(want).max()))
+    _adjoint(u, down, v, up)
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_even_odd_slices_match_jax(axis):
+    u = _vol(DIM, 10)
+    for tf, jf in ((tscaling.even_slices, jscaling.even_slices),
+                   (tscaling.odd_slices, jscaling.odd_slices)):
+        np.testing.assert_array_equal(tf(torch.from_numpy(u), axis).numpy(),
+                                      np.asarray(jf(jnp.asarray(u), axis)))
+
+
+@pytest.mark.parametrize("name", ["dct_membrane_eigs",
+                                  "fourier_membrane_eigs"])
+@pytest.mark.parametrize("dim,vx", [(DIM, VX), ((16, 16, 17), (1, 1, 4))])
+def test_membrane_eigs_match_jax(name, dim, vx):
+    got = getattr(tadmm, name)(dim, vx).numpy()
+    want = np.asarray(getattr(jadmm, name)(dim, vx))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_admm_aux_matches_jax():
+    got = tadmm.admm_aux(2, DIM)
+    want = jadmm.admm_aux(2, DIM)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -109,6 +109,83 @@ def test_matches_native_cpp_oracle(name, mat, out_dim):
            pull_grad_np(vol, M, out_dim), np.abs(vol).max())
 
 
+# --- the fov override and the explicit push window ---------------------------
+# Bounds in the input grid's voxels, in place of [-0.5, n - 0.5]: narrower
+# than IN_DIM on every axis, and wider (sample points outside the volume then
+# count, their outside corners weighing 0). Off the maps' sample points.
+FOVS = [
+    ("narrow", np.array([[1.2, 10.7], [2.3, 11.4], [0.8, 14.1]], np.float32)),
+    ("wide", np.array([[-2.3, 15.6], [-1.7, 16.2], [-3.1, 18.4]], np.float32)),
+]
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("fov_name,fov", FOVS)
+@pytest.mark.parametrize("name,mat,out_dim", MAPS)
+def test_fov_pull_push_match_jax_and_adjoint(name, mat, out_dim, fov_name,
+                                             fov, order):
+    vol = _vol(IN_DIM, 40)
+    vals = _vol(out_dim, 41)
+    M = tr.affine_to_M(mat)
+    got_pull = tr.pull(torch.from_numpy(vol), M, out_dim, order=order,
+                       fov=fov).numpy()
+    got_push = tr.push(torch.from_numpy(vals), M, IN_DIM, order=order,
+                       fov=fov).numpy()
+    _close(got_pull, np.asarray(jr.pull(jnp.asarray(vol), jnp.asarray(M),
+                                        out_dim, order=order,
+                                        fov=jnp.asarray(fov))),
+           np.abs(vol).max())
+    _close(got_push, np.asarray(jr.push(jnp.asarray(vals), jnp.asarray(M),
+                                        IN_DIM, order=order,
+                                        fov=jnp.asarray(fov))),
+           np.abs(vals).max())
+    # the override changes the result: some sample point is inside one set
+    # of bounds and outside the other (the identity samples no point
+    # outside the volume, so the wide bounds keep its mask)
+    g = tr._sample_coords(M, out_dim, "cpu")
+    same = torch.equal(tr._fov_mask(g, IN_DIM, fov), tr._fov_mask(g, IN_DIM))
+    assert same == (name == "identity" and fov_name == "wide")
+    lhs = float((got_pull.astype(np.float64) * vals).sum())
+    rhs = float((got_push.astype(np.float64) * vol).sum())
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("name,mat,out_dim", MAPS)
+def test_default_fov_and_window_are_bitwise_the_defaults(name, mat, out_dim,
+                                                         order):
+    """fov=None and the explicit bounds [-0.5, n - 0.5] give the same bits,
+    and so do push's default window and ``window=push_window(M)``."""
+    vol = torch.from_numpy(_vol(IN_DIM, 42))
+    vals = torch.from_numpy(_vol(out_dim, 43))
+    M = tr.affine_to_M(mat)
+    bounds = np.array([[-0.5, n - 0.5] for n in IN_DIM], np.float32)
+    pull_none = tr.pull(vol, M, out_dim, order=order, fov=None)
+    assert torch.equal(pull_none, tr.pull(vol, M, out_dim, order=order))
+    assert torch.equal(pull_none, tr.pull(vol, M, out_dim, order=order,
+                                          fov=bounds))
+    push_none = tr.push(vals, M, IN_DIM, order=order)
+    assert torch.equal(push_none, tr.push(vals, M, IN_DIM, order=order,
+                                          fov=bounds))
+    assert torch.equal(push_none, tr.push(vals, M, IN_DIM, order=order,
+                                          window=tr.push_window(M)))
+
+
+@pytest.mark.parametrize("name,mat,out_dim", MAPS[1:])
+def test_small_window_drops_mass_as_jax(name, mat, out_dim):
+    """A window smaller than the footprint drops the same mass as the JAX
+    package's gather."""
+    vals = _vol(out_dim, 44)
+    M = tr.affine_to_M(mat)
+    small = (0, 0, 0)  # the anchor alone
+    got = tr.push(torch.from_numpy(vals), M, IN_DIM, window=small).numpy()
+    want = np.asarray(jr.push(jnp.asarray(vals), jnp.asarray(M), IN_DIM,
+                              window=small))
+    _close(got, want, np.abs(vals).max())
+    full = tr.push(torch.from_numpy(vals), M, IN_DIM).numpy()
+    assert np.abs(full - got).max() > 1e-3 * np.abs(vals).max()
+
+
 # --- the Pallas kernels the CUDA kernels replace, in interpret mode --------
 
 PALLAS_IN = (16, 16, 24)

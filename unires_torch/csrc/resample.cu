@@ -4,7 +4,8 @@
 // Semantics (the XLA oracles of unires_tpu/ops/resample.py state them plainly):
 //   pull  out[o] = sum_corners w(o, v) * vol[v],  g(o) = M . (i, j, k, 1)
 //         zero bound (out-of-range corners weigh 0); outputs whose sample
-//         point lies outside [-0.5, n - 0.5]^3 are exactly 0.
+//         point lies outside [-0.5, n - 0.5]^3 (or the caller's fov bounds)
+//         are exactly 0.
 //   push  out[v] = sum_o w(o, v) * vals[o]        (push = pull^T)
 //   pull_grad  out[o, d] = d pull(o) / d g_d(o)   (trilinear; same bound/FOV)
 // M and Minv are (3,4) float32 maps passed by value, the CUDA counterpart of
@@ -67,6 +68,25 @@ __device__ __forceinline__ bool in_fov(const float g[3], int nx, int ny,
          (g[2] <= (float)nz - 0.5f);
 }
 
+// The fov override: bounds [lo_d, hi_d] given by the caller in place of
+// [-0.5, n_d - 0.5] (the slab decomposition of unires_torch/parallel/
+// spatial.py passes the GLOBAL field of view in a slab's local frame).
+struct Box {
+  float lo[3], hi[3];
+};
+
+// The FOV test of a kernel instantiated with (FOV = true) or without the
+// override. The kernels take the Box last, so the default instantiation
+// keeps its parameter offsets and its machine code.
+template <bool FOV>
+__device__ __forceinline__ bool inside(const float g[3], int nx, int ny,
+                                       int nz, const Box& b) {
+  if (FOV)
+    return (g[0] >= b.lo[0]) & (g[0] <= b.hi[0]) & (g[1] >= b.lo[1]) &
+           (g[1] <= b.hi[1]) & (g[2] >= b.lo[2]) & (g[2] <= b.hi[2]);
+  return in_fov(g, nx, ny, nz);
+}
+
 __device__ __forceinline__ float madd(float acc, float w, float v) {
   return __fadd_rn(acc, __fmul_rn(w, v));
 }
@@ -80,12 +100,16 @@ __device__ __forceinline__ int clamp_far(float x) {
 // order, and whether each point lies inside the FOV. Where every corner of
 // every point lies inside the volume (almost everywhere), the corners are
 // read from 4 row pointers at fixed +0 / +1 offsets with no test, and the
-// FOV test is implied; elsewhere each corner is tested and an outside corner
-// reads 0, so that it adds w * 0 as the plain versions do.
-template <int RX>
+// default FOV test is implied; elsewhere each corner is tested and an
+// outside corner reads 0, so that it adds w * 0 as the plain versions do.
+// With the fov override (FOV = true) a point whose corners all lie inside
+// the volume may still lie outside the bounds (a slab's zero halo rows lie
+// inside its extended volume and outside the global FOV): every point is
+// tested against the Box on both paths.
+template <int RX, bool FOV = false>
 __device__ __forceinline__ void gather_corners(
     const float* __restrict__ vol, float g[RX][3], int nx, int ny, int nz,
-    float fl[RX][3], float v[RX][8], bool keep[RX]) {
+    float fl[RX][3], float v[RX][8], bool keep[RX], const Box& fov = Box()) {
   bool inner = true;
 #pragma unroll
   for (int q = 0; q < RX; ++q) {
@@ -96,11 +120,11 @@ __device__ __forceinline__ void gather_corners(
             (fl[q][2] >= 0.0f) & (fl[q][2] < (float)(nz - 1));
   }
   if (inner) {
-    // every corner inside the volume, hence g inside the FOV
+    // every corner inside the volume, hence g inside the default FOV
     const unsigned sxy = (unsigned)ny * nz;
 #pragma unroll
     for (int q = 0; q < RX; ++q) {
-      keep[q] = true;
+      keep[q] = FOV ? inside<true>(g[q], nx, ny, nz, fov) : true;
       const unsigned idx =
           ((unsigned)fl[q][0] * ny + (unsigned)fl[q][1]) * nz +
           (unsigned)fl[q][2];
@@ -120,7 +144,7 @@ __device__ __forceinline__ void gather_corners(
   } else {
 #pragma unroll
     for (int q = 0; q < RX; ++q) {
-      keep[q] = in_fov(g[q], nx, ny, nz);
+      keep[q] = inside<FOV>(g[q], nx, ny, nz, fov);
       const int a0 = clamp_far(fl[q][0]), b0 = clamp_far(fl[q][1]),
                 c0 = clamp_far(fl[q][2]);
 #pragma unroll
@@ -158,12 +182,15 @@ __device__ __forceinline__ void gather_corners(
 // path without bound tests). Staging each tile's input box in shared memory
 // (the TPU kernel's VMEM window) measured slower at every tile size tried,
 // L1 already serving the overlap (scripts/cuda_staged_variants.py reruns
-// it).
+// it). The fov override is the instantiation FOV = true, which tests every
+// sample point against the caller's bounds (gather_corners); the default
+// instantiation is the kernel without it, instruction for instruction.
 // ---------------------------------------------------------------------------
-template <int ORDER>
+template <int ORDER, bool FOV>
 __global__ void __launch_bounds__(kLanesZ * kRowsY)
     pull_kernel(const float* __restrict__ vol, float* __restrict__ out,
-                Map34 M, int nx, int ny, int nz, int ox, int oy, int oz) {
+                Map34 M, int nx, int ny, int nz, int ox, int oy, int oz,
+                Box fov) {
   const int j = blockIdx.y * kRowsY + threadIdx.y;
   const int k = blockIdx.x * kLanesZ + threadIdx.x;
   if (j >= oy || k >= oz) return;
@@ -179,14 +206,14 @@ __global__ void __launch_bounds__(kLanesZ * kRowsY)
       const int a = clamp_far(floorf(g[q][0] + 0.5f));
       const int b = clamp_far(floorf(g[q][1] + 0.5f));
       const int c = clamp_far(floorf(g[q][2] + 0.5f));
-      const bool ok = in_fov(g[q], nx, ny, nz) & (a >= 0) & (a < nx) &
-                      (b >= 0) & (b < ny) & (c >= 0) & (c < nz);
+      const bool ok = inside<FOV>(g[q], nx, ny, nz, fov) & (a >= 0) &
+                      (a < nx) & (b >= 0) & (b < ny) & (c >= 0) & (c < nz);
       res[q] = ok ? __ldg(vol + (a * ny + b) * nz + c) : 0.0f;
     }
   } else {
     float fl[kRowsX][3], v[kRowsX][8];
     bool keep[kRowsX];
-    gather_corners<kRowsX>(vol, g, nx, ny, nz, fl, v, keep);
+    gather_corners<kRowsX, FOV>(vol, g, nx, ny, nz, fl, v, keep, fov);
 #pragma unroll
     for (int q = 0; q < kRowsX; ++q) {
       const float f0 = __fsub_rn(g[q][0], fl[q][0]);
@@ -251,14 +278,17 @@ __global__ void __launch_bounds__(kLanesZ * kRowsY)
 // inside it), and every candidate adds w * vals[o], 0 where it weighs
 // nothing. Staging a source box per target tile in shared memory, each
 // source's floors and fractions computed once, measured slower at every
-// tile size tried (scripts/cuda_staged_variants.py).
+// tile size tried (scripts/cuda_staged_variants.py). With the fov override
+// (FOV = true) the bounds need not enclose the target grid, so every
+// candidate of every target is tested against them; the default
+// instantiation is the kernel without it, instruction for instruction.
 // ---------------------------------------------------------------------------
-template <int ORDER>
+template <int ORDER, bool FOV>
 __global__ void __launch_bounds__(kLanesZ * kRowsY)
     push_kernel(const float* __restrict__ vals, float* __restrict__ out,
                 Map34 M, Map34 Minv, float rx, float ry, float rz, int sx,
                 int sy, int sz, int tx, int ty, int tz, int wx, int wy,
-                int wz) {
+                int wz, Box fov) {
   const int vk = blockIdx.x * kLanesZ + threadIdx.x;
   const int vj = blockIdx.y * kRowsY + threadIdx.y;
   const int vi = blockIdx.z;
@@ -275,9 +305,9 @@ __global__ void __launch_bounds__(kLanesZ * kRowsY)
     hi[d] = min(min(clamp_far(floorf(c[d] + r[d])), anc + w[d]), s[d] - 1);
   }
   const int v[3] = {vi, vj, vk};
-  // a weighted source of an interior target lies inside the FOV
-  const bool edge = (vi < 1) | (vi > tx - 2) | (vj < 1) | (vj > ty - 2) |
-                    (vk < 1) | (vk > tz - 2);
+  // a weighted source of an interior target lies inside the default FOV
+  const bool edge = FOV | (vi < 1) | (vi > tx - 2) | (vj < 1) |
+                    (vj > ty - 2) | (vk < 1) | (vk > tz - 2);
   float acc = 0.0f;
   for (int oa = lo[0]; oa <= hi[0]; ++oa) {
     float pa[3];
@@ -296,7 +326,7 @@ __global__ void __launch_bounds__(kLanesZ * kRowsY)
           g[d] = __fadd_rn(__fadd_rn(s01[d], __fmul_rn(M.m[4 * d + 2],
                                                        (float)oc)),
                            M.m[4 * d + 3]);
-        if (edge && !in_fov(g, tx, ty, tz)) continue;
+        if (edge && !inside<FOV>(g, tx, ty, tz, fov)) continue;
         float wt = 1.0f;
 #pragma unroll
         for (int d = 0; d < 3; ++d) {
@@ -432,13 +462,53 @@ inline Map34 load_map(const float* m) {
   return M;
 }
 
+// fov: null, or a host pointer to the (3, 2) bounds [[lo_x, hi_x], ...]
+inline Box load_box(const float* fov) {
+  Box b = {};
+  if (fov)
+    for (int d = 0; d < 3; ++d) {
+      b.lo[d] = fov[2 * d];
+      b.hi[d] = fov[2 * d + 1];
+    }
+  return b;
+}
+
+template <int ORDER>
+void launch_pull(dim3 grid, dim3 block, cudaStream_t s, const float* vol,
+                 float* out, const Map34& M, int nx, int ny, int nz, int ox,
+                 int oy, int oz, const float* fov) {
+  if (fov)
+    pull_kernel<ORDER, true><<<grid, block, 0, s>>>(vol, out, M, nx, ny, nz,
+                                                    ox, oy, oz, load_box(fov));
+  else
+    pull_kernel<ORDER, false><<<grid, block, 0, s>>>(
+        vol, out, M, nx, ny, nz, ox, oy, oz, Box());
+}
+
+template <int ORDER>
+void launch_push(dim3 grid, dim3 block, cudaStream_t s, const float* vals,
+                 float* out, const Map34& M, const Map34& Minv,
+                 const float* reach, int sx, int sy, int sz, int tx, int ty,
+                 int tz, int wx, int wy, int wz, const float* fov) {
+  if (fov)
+    push_kernel<ORDER, true><<<grid, block, 0, s>>>(
+        vals, out, M, Minv, reach[0], reach[1], reach[2], sx, sy, sz, tx, ty,
+        tz, wx, wy, wz, load_box(fov));
+  else
+    push_kernel<ORDER, false><<<grid, block, 0, s>>>(
+        vals, out, M, Minv, reach[0], reach[1], reach[2], sx, sy, sz, tx, ty,
+        tz, wx, wy, wz, Box());
+}
+
 }  // namespace
 
 extern "C" {
 
-// vol (nx, ny, nz) -> out (ox, oy, oz); m: host pointer to 12 floats.
-int unires_pull(const float* vol, float* out, const float* m, int nx, int ny,
-                int nz, int ox, int oy, int oz, int order, void* stream) {
+// vol (nx, ny, nz) -> out (ox, oy, oz); m: host pointer to 12 floats; fov:
+// null (bounds [-0.5, n - 0.5]) or a host pointer to 6 floats.
+int unires_pull(const float* vol, float* out, const float* m,
+                const float* fov, int nx, int ny, int nz, int ox, int oy,
+                int oz, int order, void* stream) {
   const Map34 M = load_map(m);
   if ((long long)ox * oy * oz == 0) return (int)cudaGetLastError();
   const dim3 block(kLanesZ, kRowsY);
@@ -447,19 +517,20 @@ int unires_pull(const float* vol, float* out, const float* m, int nx, int ny,
                   (unsigned)((ox + kRowsX - 1) / kRowsX));
   cudaStream_t s = (cudaStream_t)stream;
   if (order == 0)
-    pull_kernel<0><<<grid, block, 0, s>>>(vol, out, M, nx, ny, nz, ox, oy, oz);
+    launch_pull<0>(grid, block, s, vol, out, M, nx, ny, nz, ox, oy, oz, fov);
   else
-    pull_kernel<1><<<grid, block, 0, s>>>(vol, out, M, nx, ny, nz, ox, oy, oz);
+    launch_pull<1>(grid, block, s, vol, out, M, nx, ny, nz, ox, oy, oz, fov);
   return (int)cudaGetLastError();
 }
 
 // vals (sx, sy, sz) on pull's output grid -> out (tx, ty, tz) on pull's
 // input grid; m, minv: host pointers to 12 floats; reach: host pointer to 3
-// floats (ops/resample.py: push_reach); (wx, wy, wz): window.
+// floats (ops/resample.py: push_reach); fov: null or a host pointer to 6
+// floats, as pull's; (wx, wy, wz): window.
 int unires_push(const float* vals, float* out, const float* m,
-                const float* minv, const float* reach, int sx, int sy, int sz,
-                int tx, int ty, int tz, int wx, int wy, int wz, int order,
-                void* stream) {
+                const float* minv, const float* reach, const float* fov,
+                int sx, int sy, int sz, int tx, int ty, int tz, int wx, int wy,
+                int wz, int order, void* stream) {
   const Map34 M = load_map(m);
   const Map34 Minv = load_map(minv);
   if ((long long)tx * ty * tz == 0) return (int)cudaGetLastError();
@@ -468,13 +539,11 @@ int unires_push(const float* vals, float* out, const float* m,
                   (unsigned)((ty + kRowsY - 1) / kRowsY), (unsigned)tx);
   cudaStream_t s = (cudaStream_t)stream;
   if (order == 0)
-    push_kernel<0><<<grid, block, 0, s>>>(vals, out, M, Minv, reach[0],
-                                          reach[1], reach[2], sx, sy, sz, tx,
-                                          ty, tz, wx, wy, wz);
+    launch_push<0>(grid, block, s, vals, out, M, Minv, reach, sx, sy, sz, tx,
+                   ty, tz, wx, wy, wz, fov);
   else
-    push_kernel<1><<<grid, block, 0, s>>>(vals, out, M, Minv, reach[0],
-                                          reach[1], reach[2], sx, sy, sz, tx,
-                                          ty, tz, wx, wy, wz);
+    launch_push<1>(grid, block, s, vals, out, M, Minv, reach, sx, sy, sz, tx,
+                   ty, tz, wx, wy, wz, fov);
   return (int)cudaGetLastError();
 }
 

@@ -11,6 +11,8 @@ Semantics (pinned by the reference, unires/_project.py:153-157):
   * ``blur_down_sep``: VALID cross-correlation at integer stride ``ratio``.
   * ``blur_up_sep``: its exact adjoint (zero-stuff by ``ratio``, then full
     correlation with the kernel).
+``blur_down`` / ``blur_up`` take the dense (non-separable) kernel instead,
+one strided slice per kernel tap, for 2D or 3D volumes.
 """
 from __future__ import annotations
 
@@ -90,3 +92,38 @@ def blur_up_sep(dat: torch.Tensor, kers_1d, ratio) -> torch.Tensor:
     for axis, (k, r) in enumerate(zip(kers_1d, ratio)):
         dat = _up_1d(dat, np.asarray(k), int(r), axis)
     return dat
+
+
+def _tap_slices(ker_shape, ratio, n_out):
+    """(tap, slices) for every tap t of a dense kernel: the input positions
+    r * i + t of the output i = 0 .. n_out - 1 on every axis."""
+    for t in np.ndindex(*ker_shape):
+        yield t, tuple(slice(a, a + (n - 1) * r + 1, r)
+                       for a, r, n in zip(t, ratio, n_out))
+
+
+def blur_down(dat: torch.Tensor, ker, ratio) -> torch.Tensor:
+    """VALID strided correlation of a bare 2D / 3D volume with a dense
+    kernel of the same rank: out[i] = sum_t ker[t] * dat[ratio * i + t]."""
+    ker = np.asarray(ker, np.float32)
+    ratio = tuple(int(r) for r in ratio)
+    n_out = tuple((n - k) // r + 1
+                  for n, k, r in zip(dat.shape, ker.shape, ratio))
+    out = None
+    for t, sl in _tap_slices(ker.shape, ratio, n_out):
+        term = float(ker[t]) * dat[sl]
+        out = term if out is None else out + term
+    return out
+
+
+def blur_up(dat: torch.Tensor, ker, ratio) -> torch.Tensor:
+    """Exact adjoint of :func:`blur_down`: out[ratio * i + t] +=
+    ker[t] * dat[i], on a grid of (n - 1) * ratio + k voxels per axis."""
+    ker = np.asarray(ker, np.float32)
+    ratio = tuple(int(r) for r in ratio)
+    dim_in = tuple((n - 1) * r + k
+                   for n, k, r in zip(dat.shape, ker.shape, ratio))
+    out = dat.new_zeros(dim_in)
+    for t, sl in _tap_slices(ker.shape, ratio, tuple(dat.shape)):
+        out[sl] += float(ker[t]) * dat
+    return out

@@ -28,8 +28,8 @@ _I = ctypes.c_int
 # C signatures of csrc/resample.cu (every pointer and the stream as c_void_p,
 # so that ctypes never truncates a 64-bit address)
 _SIGNATURES = {
-    "unires_pull": [_VP, _VP, _VP] + [_I] * 7 + [_VP],
-    "unires_push": [_VP] * 5 + [_I] * 10 + [_VP],
+    "unires_pull": [_VP] * 4 + [_I] * 7 + [_VP],
+    "unires_push": [_VP] * 6 + [_I] * 10 + [_VP],
     "unires_pull_grad": [_VP, _VP, _VP] + [_I] * 6 + [_VP],
 }
 

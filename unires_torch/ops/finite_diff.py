@@ -56,3 +56,8 @@ def im_divergence(p: torch.Tensor, vx, which: str = "forward") -> torch.Tensor:
             raise ValueError(which)
         out = out + a / float(vx[d])
     return out
+
+
+def DtD(dat: torch.Tensor, vx, which: str = "forward") -> torch.Tensor:
+    """D^T (D dat), the membrane operator of the CG normal matrix."""
+    return im_divergence(im_gradient(dat, vx, which), vx, which)

@@ -1,7 +1,8 @@
 """Affine resampling: pull (gather), push (its exact adjoint), pull_grad.
 
 Semantics of ``unires_tpu.ops.resample`` (zero bound, ``extrapolate=False``
-over the FOV [-0.5, n-0.5]^3, trilinear or nearest), written twice:
+over the FOV [-0.5, n-0.5]^3 or the caller's ``fov`` bounds, trilinear or
+nearest), written twice:
 
 * the plain PyTorch versions ``pull_plain`` / ``push_plain`` /
   ``pull_grad_plain``, tensor ops transcribed from the XLA oracles; and
@@ -13,11 +14,17 @@ The public ``pull`` / ``push`` / ``pull_grad`` take the tensor's device as
 the dispatch rule: a CPU tensor goes through the plain version, a CUDA tensor
 through the kernel (or an error). There is no fallback from one to the other.
 Each wrapper counts its kernel launches in ``pull.launches`` /
-``push.launches`` / ``pull_grad.launches``.
+``push.launches`` / ``pull_grad.launches``, and pull and push those of the
+kernels' ``fov`` instantiation also in ``pull.fov_launches`` /
+``push.fov_launches``.
 
 Maps: ``M`` is the (3, 4) float32 map from output voxel to input voxel, held
 on the host (numpy) — it is 12 numbers that reach the kernel as launch
-arguments, the CUDA counterpart of the Pallas kernels' scalar prefetch.
+arguments, the CUDA counterpart of the Pallas kernels' scalar prefetch. The
+``fov`` override of pull and push, a (3, 2) array of per-axis bounds
+[lo_d, hi_d] in place of [-0.5, n_d - 0.5] (the slab decomposition of
+``parallel.spatial`` passes the global field of view in a slab's frame), is
+held on the host too and reaches the kernel the same way.
 
 push visits, for each target, only the sources within
 :func:`push_reach` of ``Minv . v`` (on the host, from the maps and shapes).
@@ -135,10 +142,26 @@ def _map_points(M: np.ndarray, o):
             + float(M[d, 2]) * o[2] + float(M[d, 3]) for d in range(3)]
 
 
-def _fov_mask(g, in_dim):
+def _as_fov(fov):
+    """None, or the (3, 2) float32 host bounds of a ``fov`` override."""
+    if fov is None:
+        return None
+    if isinstance(fov, torch.Tensor):
+        fov = fov.detach().cpu().numpy()
+    return np.ascontiguousarray(np.asarray(fov, np.float32).reshape(3, 2))
+
+
+def _fov_mask(g, in_dim, fov=None):
+    """extrapolate=False: g within [-0.5, n_d - 0.5], or within
+    [fov[d, 0], fov[d, 1]] when the (3, 2) float32 host bounds are given
+    (compared in float32, as the JAX package's ``_fov_mask``)."""
     m = None
     for d in range(3):
-        md = (g[d] >= -0.5) & (g[d] <= in_dim[d] - 0.5)
+        if fov is None:
+            lo, hi = -0.5, in_dim[d] - 0.5
+        else:
+            lo, hi = float(fov[d, 0]), float(fov[d, 1])
+        md = (g[d] >= lo) & (g[d] <= hi)
         m = md if m is None else (m & md)
     return m
 
@@ -175,13 +198,14 @@ def _corner_data(g, in_dim, order):
                 yield (ia * Y + ib) * Z + ic, w
 
 
-def pull_plain(vol: torch.Tensor, M, out_dim, order: int = 1) -> torch.Tensor:
+def pull_plain(vol: torch.Tensor, M, out_dim, order: int = 1,
+               fov=None) -> torch.Tensor:
     """Plain PyTorch pull (``unires_tpu.ops.resample._pull_gather``)."""
     M = _as_map(M)
     out_dim = tuple(int(d) for d in out_dim)
     in_dim = tuple(vol.shape)
     g = _sample_coords(M, out_dim, vol.device)
-    mask = _fov_mask(g, in_dim).to(vol.dtype)
+    mask = _fov_mask(g, in_dim, _as_fov(fov)).to(vol.dtype)
     flat = vol.reshape(-1)
     out = torch.zeros(out_dim, dtype=vol.dtype, device=vol.device)
     for idx, w in _corner_data(g, in_dim, order):
@@ -189,13 +213,14 @@ def pull_plain(vol: torch.Tensor, M, out_dim, order: int = 1) -> torch.Tensor:
     return out * mask
 
 
-def push_plain(vals: torch.Tensor, M, vol_dim, order: int = 1,
-               Minv=None) -> torch.Tensor:
+def push_plain(vals: torch.Tensor, M, vol_dim, order: int = 1, Minv=None,
+               window=None, fov=None) -> torch.Tensor:
     """Plain PyTorch push, the gather form of pull^T
     (``unires_tpu.ops.resample._push_gather``)."""
     M = _as_map(M)
     Minv = inverse_map(M) if Minv is None else _as_map(Minv)
-    window = push_window(M)
+    window = push_window(M) if window is None else _check_window(window)
+    fov = _as_fov(fov)
     vol_dim = tuple(int(d) for d in vol_dim)
     in_dim = tuple(vals.shape)  # source grid (pull's output grid)
     dev = vals.device
@@ -213,7 +238,7 @@ def push_plain(vals: torch.Tensor, M, vol_dim, order: int = 1,
                 ok = ((o[0] >= 0) & (o[0] < in_dim[0]) & (o[1] >= 0)
                       & (o[1] < in_dim[1]) & (o[2] >= 0) & (o[2] < in_dim[2]))
                 g = _map_points(M, [o[d].to(torch.float32) for d in range(3)])
-                fovm = _fov_mask(g, vol_dim)
+                fovm = _fov_mask(g, vol_dim, fov)
                 w = None
                 for d in range(3):
                     if order == 0:
@@ -306,61 +331,85 @@ def _check_order(order: int) -> int:
     return int(order)
 
 
-def pull(vol: torch.Tensor, M, out_dim, order: int = 1) -> torch.Tensor:
+def _check_window(window) -> tuple:
+    window = tuple(int(w) for w in window)
+    if len(window) != 3 or min(window) < 0:
+        raise ValueError(f"push window {window} (three half-widths >= 0)")
+    return window
+
+
+def _fov_ptr(fov):
+    # null: the kernel's default bounds [-0.5, n - 0.5]
+    return None if fov is None else fov.ctypes.data
+
+
+def pull(vol: torch.Tensor, M, out_dim, order: int = 1,
+         fov=None) -> torch.Tensor:
     """Sample ``vol`` at g = M @ (i,j,k,1) for every output voxel.
 
     Zero bound, no extrapolation; ``order`` 0 (nearest) or 1 (trilinear).
     ``M`` is the (3, 4) map from output voxel to input voxel (host array).
+    ``fov`` (3, 2), optional, overrides the no-extrapolation bounds.
     """
     order = _check_order(order)
     out_dim = tuple(int(d) for d in out_dim)
     if _on_cpu(vol, "pull"):
-        return pull_plain(vol, M, out_dim, order)
+        return pull_plain(vol, M, out_dim, order, fov)
     M = _as_map(M)
+    fov = _as_fov(fov)
     _check_size(vol.shape, out_dim)
     out = torch.empty(out_dim, dtype=torch.float32, device=vol.device)
     with torch.cuda.device(vol.device):
         err = kernels.get().unires_pull(
-            vol.data_ptr(), out.data_ptr(), M.ctypes.data, *vol.shape,
-            *out_dim, order, torch.cuda.current_stream().cuda_stream)
+            vol.data_ptr(), out.data_ptr(), M.ctypes.data, _fov_ptr(fov),
+            *vol.shape, *out_dim, order,
+            torch.cuda.current_stream().cuda_stream)
     check(err, "pull")
     pull.launches += 1
+    if fov is not None:
+        pull.fov_launches += 1
     return out
 
 
-pull.launches = 0
+pull.launches = pull.fov_launches = 0
 
 
-def push(vals: torch.Tensor, M, vol_dim, order: int = 1,
-         Minv=None) -> torch.Tensor:
+def push(vals: torch.Tensor, M, vol_dim, order: int = 1, Minv=None,
+         window=None, fov=None) -> torch.Tensor:
     """Exact adjoint of :func:`pull` (gather form, no atomics).
 
     ``M`` is the SAME (3, 4) map given to pull (source voxel -> target
-    voxel). ``Minv`` (its inverse) is derived from ``M`` on the host when
-    not given; the candidate window (:func:`push_window`) and reach
-    (:func:`push_reach`) always are, once per map (:func:`_push_plan`).
+    voxel), and ``fov`` the same bounds. ``Minv`` (its inverse) is derived
+    from ``M`` on the host when not given, and so is the candidate window
+    (:func:`push_window`) unless ``window`` names its three half-widths (a
+    window smaller than the footprint drops mass, as the JAX package's); the
+    reach (:func:`push_reach`) always is, once per map (:func:`_push_plan`).
     """
     order = _check_order(order)
     vol_dim = tuple(int(d) for d in vol_dim)
     if _on_cpu(vals, "push"):
-        return push_plain(vals, M, vol_dim, order, Minv)
+        return push_plain(vals, M, vol_dim, order, Minv, window, fov)
     M = _as_map(M)
-    Minv, window, reach = _push_plan(
+    fov = _as_fov(fov)
+    Minv, plan_window, reach = _push_plan(
         M.tobytes(), None if Minv is None else _as_map(Minv).tobytes(), order,
         tuple(vals.shape), vol_dim)
+    window = plan_window if window is None else _check_window(window)
     _check_size(vals.shape, vol_dim)
     out = torch.empty(vol_dim, dtype=torch.float32, device=vals.device)
     with torch.cuda.device(vals.device):
         err = kernels.get().unires_push(
             vals.data_ptr(), out.data_ptr(), M.ctypes.data, Minv.ctypes.data,
-            reach.ctypes.data, *vals.shape, *vol_dim, *window, order,
-            torch.cuda.current_stream().cuda_stream)
+            reach.ctypes.data, _fov_ptr(fov), *vals.shape, *vol_dim, *window,
+            order, torch.cuda.current_stream().cuda_stream)
     check(err, "push")
     push.launches += 1
+    if fov is not None:
+        push.fov_launches += 1
     return out
 
 
-push.launches = 0
+push.launches = push.fov_launches = 0
 
 
 def pull_grad(vol: torch.Tensor, M, out_dim) -> torch.Tensor:

@@ -17,3 +17,19 @@ def apply_scaling(dat: torch.Tensor, scl, axis: int) -> torch.Tensor:
     shape = [1] * dat.dim()
     shape[axis] = n
     return dat * torch.exp(float(scl) * sgn.reshape(shape))
+
+
+def _parity(dat: torch.Tensor, axis: int, start: int) -> torch.Tensor:
+    sl = [slice(None)] * dat.dim()
+    sl[axis] = slice(start, None, 2)
+    return dat[tuple(sl)]
+
+
+def even_slices(dat: torch.Tensor, axis: int) -> torch.Tensor:
+    """Slices at even indices along ``axis`` (the exp(+s) group)."""
+    return _parity(dat, axis, 0)
+
+
+def odd_slices(dat: torch.Tensor, axis: int) -> torch.Tensor:
+    """Slices at odd indices along ``axis`` (the exp(-s) group)."""
+    return _parity(dat, axis, 1)

@@ -41,6 +41,13 @@ def _f64_sum(v: torch.Tensor) -> torch.Tensor:
     return v.sum(dtype=torch.float64)
 
 
+def admm_aux(C: int, dim_y, device="cpu") -> tuple:
+    """The zero auxiliary and dual variables z, w, each (C, 3, *dim_y)."""
+    shape = (int(C), 3) + tuple(int(d) for d in dim_y)
+    return (torch.zeros(shape, dtype=torch.float32, device=device),
+            torch.zeros(shape, dtype=torch.float32, device=device))
+
+
 def step_size(x, y, sett) -> float:
     """rho = rho_scl * sqrt(mean tau) / mean lam; 1.0 for CT (ref :35-64)."""
     if any(o.ct for c in x for o in c):
@@ -71,6 +78,50 @@ def dct_matrices(dim_y, device="cpu"):
         C[0] /= np.sqrt(2.0)
         out.append(torch.as_tensor(C.astype(np.float32), device=device))
     return out
+
+
+def _eig_field(dim_y, vx_y, period: float) -> np.ndarray:
+    """sum_d 4 sin^2(pi k_d / (period n_d)) / vx_d^2 on the full grid, each
+    axis in float64 and the sum in float32 in axis order, as the JAX
+    package's tables."""
+    dim_y = tuple(int(d) for d in dim_y)
+    lamD = np.zeros(dim_y, np.float32)
+    for d in range(3):
+        k = np.arange(dim_y[d])
+        e = (4.0 / float(vx_y[d]) ** 2) * np.sin(
+            np.pi * k / (period * dim_y[d])) ** 2
+        shape = [1, 1, 1]
+        shape[d] = dim_y[d]
+        lamD = lamD + e.reshape(shape).astype(np.float32)
+    return lamD
+
+
+def dct_membrane_eigs(dim_y, vx_y, device="cpu") -> torch.Tensor:
+    """DCT-II eigenvalues of the Neumann-boundary membrane operator,
+    sum_d 4 sin^2(pi k_d / (2 n_d)) / vx_d^2, as a full (X, Y, Z) float32
+    table (the preconditioner of the parallel solvers)."""
+    return torch.as_tensor(_eig_field(dim_y, vx_y, 2.0), device=device)
+
+
+def fourier_membrane_eigs(dim_y, vx_y, device="cpu") -> torch.Tensor:
+    """rfftn eigenvalues of the circulant membrane operator,
+    sum_d 4 sin^2(pi k_d / n_d) / vx_d^2, on the (X, Y, Z // 2 + 1) half
+    grid (the FFT preconditioner the DCT one replaced)."""
+    lamD = _eig_field(dim_y, vx_y, 1.0)
+    return torch.as_tensor(lamD[..., :int(dim_y[2]) // 2 + 1].copy(),
+                           device=device)
+
+
+def dct_apply(V: torch.Tensor, Mx, My, Mz) -> torch.Tensor:
+    """The separable transform of a (C, X, Y, Z) stack, one (n, n) matrix per
+    axis: each axis moved last by a transpose, reshaped and multiplied."""
+    Cn, X, Y, Z = V.shape
+    t = V.transpose(1, 3).reshape(-1, X)
+    t = (t @ Mx).reshape(Cn, Z, Y, X).transpose(1, 3)
+    t = t.transpose(2, 3).reshape(-1, Y)
+    t = (t @ My).reshape(Cn, X, Z, Y).transpose(2, 3)
+    t = t.reshape(-1, Z)
+    return (t @ Mz).reshape(Cn, X, Y, Z)
 
 
 def _axis_tables(dim_y, fn, device):
@@ -156,7 +207,6 @@ def make_admm_body(x, y, sett):
     tiny = 1e-7
     dim_y = tuple(int(d) for d in y[0].dim)
     dev = _device(sett)
-    X, Y, Z = dim_y
 
     ops = [[make_obs_ops(o.po, method) for o in x[c]] for c in range(C)]
     precond_mode = getattr(sett, "precond", "dct") or "dct"
@@ -167,16 +217,6 @@ def make_admm_body(x, y, sett):
     Cx, Cy, Cz = dct_matrices(dim_y, dev)
     eig_tabs = dct_membrane_tables(dim_y, dev)
     jac_tabs = jacobi_tables(dim_y, dev)
-
-    def _dct_apply(V, Mx, My, Mz):
-        # per-axis transform as transpose + reshape + matmul
-        Cn = V.shape[0]
-        t = V.transpose(1, 3).reshape(-1, X)
-        t = (t @ Mx).reshape(Cn, Z, Y, X).transpose(1, 3)
-        t = t.transpose(2, 3).reshape(-1, Y)
-        t = (t @ My).reshape(Cn, X, Z, Y).transpose(2, 3)
-        t = t.reshape(-1, Z)
-        return (t @ Mz).reshape(Cn, X, Y, Z)
 
     def _bc(v):
         return v[:, None, None, None]
@@ -193,8 +233,8 @@ def make_admm_body(x, y, sett):
         CxT, CyT, CzT = Cx.T, Cy.T, Cz.T
 
         def P(V):
-            t = _dct_apply(V, CxT, CyT, CzT)
-            return _dct_apply(t / denom, Cx, Cy, Cz)
+            t = dct_apply(V, CxT, CyT, CzT)
+            return dct_apply(t / denom, Cx, Cy, Cz)
 
         return P
 

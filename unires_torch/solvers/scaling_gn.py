@@ -28,14 +28,8 @@ import torch
 from ..geometry import fov_centre, rigid_from_q
 from ..models.forward import make_obs_suite, obs_dyn_args
 from ..models.proj_op import ProjOp
-from ..ops.scaling import apply_scaling
+from ..ops.scaling import apply_scaling, even_slices, odd_slices
 from ..utils.host import to_host
-
-
-def _parity(dat: torch.Tensor, axis: int, start: int) -> torch.Tensor:
-    sl = [slice(None)] * 3
-    sl[axis] = slice(start, None, 2)
-    return dat[tuple(sl)]
 
 
 def _f64(v: torch.Tensor) -> torch.Tensor:
@@ -48,8 +42,8 @@ def scaling_stats(dat_y0, dat_x, s, tau, axis) -> np.ndarray:
     msk = dat_x != 0
     res = torch.where(msk, dat_x - dat_y, 0.0)
     y = torch.where(msk, dat_y, 0.0)
-    ye, yo = _parity(y, axis, 0), _parity(y, axis, 1)
-    xe, xo = _parity(dat_x, axis, 0), _parity(dat_x, axis, 1)
+    ye, yo = even_slices(y, axis), odd_slices(y, axis)
+    xe, xo = even_slices(dat_x, axis), odd_slices(dat_x, axis)
     sums = torch.stack([_f64(res * res), _f64(ye * (xe - ye)),
                         _f64(yo * (xo - yo)), _f64(ye * ye), _f64(yo * yo)])
     ll2, sp, sm, he, ho = (float(v) for v in to_host(sums))
