@@ -14,7 +14,9 @@ Phases, each printing its lines:
    ~1 degree / 1 mm pose; pull also as the init reslice, at order 0 and on
    a 45 degree x 3 map; pull_grad also on a 1 mm co-registration level, on
    the 45 degree x 3 map and on the 2 mm level of an atlas alignment);
-   every kernel must equal its plain version bitwise. Per case: device
+   every kernel must equal its plain version bitwise, with its map read
+   from device memory (a CUDA tensor; push's plan computed on the card by
+   ``push_plan``), as the fit chunk launches it. Per case: device
    ms (each call timed alone, L2 flushed before it) and host ms per call,
    GB/s, the bound (bytes or float32 operations at the H100's peak rates)
    and the kernel's share of it, and the one PyTorch call that computes
@@ -35,10 +37,18 @@ Phases, each printing its lines:
    ``bench.py`` builds it (per-channel rigid misalignment, even/odd scaling
    0.1) through ``unires_torch.init`` (NMI co-registration) + fit with
    unified rigid and scaling. Kernel launch counters are reset just before
-   each run and read just after it. Prints init / coreg seconds, s/iter,
-   PSNR and sr_vs_trilinear (as bench.py), each channel's residual pose
-   error against the simulated rigids before and after coreg and after the
-   fit, the fitted scales, launches, host syncs per iteration, peak memory.
+   each run and read just after it (the kernels count their own launches on
+   the device, those of a graph's replays included). Prints init / coreg
+   seconds, s/iter, PSNR and sr_vs_trilinear (as bench.py), each channel's
+   residual pose error against the simulated rigids before and after coreg
+   and after the fit, the fitted scales, launches, host syncs per
+   iteration, peak memory of init and of the whole, each beside the
+   figures of the host-driven loop the chunk replaced; requires init's peak <= 3.5 GiB and at most 0.25 host syncs
+   per iteration (the fit runs in chunks of 16 iterations, each one CUDA
+   graph replayed with conditional nodes and read once). Then (5b) the
+   same 8 iterations from a copy of the same init, uncaptured on the card
+   (every decision read on the host): the traces and the poses must equal
+   the captured run's; both runs' host syncs per iteration and s/iter.
 6. Init options at full width: the same misaligned phantom placed in the
    atlas frame and displaced by a known rigid transform, through
    ``unires_torch.init`` with ``common_output`` (co-registration, atlas
@@ -59,12 +69,18 @@ Phases, each printing its lines:
    hand-written kernels; (c) two subjects (two noise and pose seeds of the
    phantom, the second on the first's grid) through ``fit_batch``, held
    against single fits from copies of the same inits, with the counters
-   reset before the batch and read after it; then ``--shard`` with
-   ``--common_output`` on two subjects of two 2 mm channels each.
+   reset before the batch and read after it (every subject's chunk is
+   enqueued before any is read); then ``--shard`` with ``--common_output``
+   on two subjects of two 2 mm channels each. In (b) the trace must hold as
+   many pull and push kernel events as the kernels counted launches: the
+   replays of the graph are traced kernel by kernel.
 
 9. Converged quality: the misaligned ``bench.py`` workload fitted to its
    tolerance of 1e-4 (coreg, unified rigid, scaling, ``sched_num=3``,
-   ``reg_scl=4.0``); requires PSNR >= 23.5 dB and sr_vs_trilinear <= 0.70.
+   ``reg_scl=4.0``); requires PSNR >= 23.5 dB and sr_vs_trilinear <= 0.70;
+   prints n_iter, PSNR, the ratio, s/iter and host syncs per iteration
+   beside the host-driven loop's (100, 25.782 dB, 0.4817; it read the host
+   every iteration).
 10. The multi-device solvers on the one card, at full width: the
    pre-aligned phantom, every channel thick along z, through
    ``init_multihost`` on NCCL with a world of 1: (a) the (batch, channel)
@@ -114,7 +130,7 @@ from unires_torch.ops import cuda_build
 from unires_torch.ops.resample import (_as_map, _fov_mask, _sample_coords,
                                        affine_to_M, pull, pull_grad,
                                        pull_grad_plain, pull_plain, push,
-                                       push_plain, push_window)
+                                       push_plain, push_plan, push_window)
 from unires_torch.parallel.spatial import (slab_maps, spatial_halo_bound,
                                            sr_halo_bounds)
 from unires_torch.pipeline.convert import convert_state
@@ -127,6 +143,7 @@ from unires_torch.utils.phantoms import brain_phantom
 
 # the module (the package re-exports the function ``fit`` under its name)
 fit_mod = importlib.import_module("unires_torch.pipeline.fit")
+fitloop = importlib.import_module("unires_torch.solvers.fitloop")
 
 DIM_Y = (181, 217, 181)
 # a yardstick against the plain version: max abs error <= YARDSTICK_TOL *
@@ -169,6 +186,15 @@ RESUME_TOL = dict(trace=1e-4, vol=1e-3, pose=1e-4)
 BATCH_TOL = dict(trace=1e-6, vol=1e-5)
 # the quality floor at convergence (PERF.md, section 2)
 PSNR_FLOOR, RATIO_CEIL = 23.5, 0.70
+# the figures of the host-driven loop the fit chunk replaced, on an H100
+# 80GB HBM3 at 700 W (PERF.md, section 6), printed beside this run's:
+# converged n_iter, PSNR, sr_vs_trilinear; phase 5's init peak memory, host
+# syncs per iteration and s/iter
+HOST_LOOP = dict(n_iter=100, psnr=25.782, ratio=0.4817,
+                 init_peak="5.33-5.42 GiB", syncs="21.4-22",
+                 s_iter="0.0880-0.1023")
+# the fit in chunks: init's peak memory (GiB) and host syncs per iteration
+INIT_PEAK_GIB, SYNCS_PER_ITER = 3.5, 0.25
 # the parallel steps against make_admm_step, as the CPU tests hold them: the
 # sharded step (ys of its scale, z and w absolute, objective relative), and
 # the slab steps, whose slab-local preconditioner stops CG elsewhere
@@ -462,7 +488,16 @@ def _measure(name, case, inp, Mc, out_dim, kw):
     its times, its bound and its library yardstick. Prints a line and
     returns the record."""
     kern_fn, plain_fn = FUNCS[name]
-    kern = lambda: kern_fn(inp, Mc, out_dim, **kw)  # noqa: E731
+    # the map in device memory, push's plan computed there, as the fit
+    # chunk launches them
+    Md = torch.from_numpy(_as_map(Mc)).to(inp.device)
+    kwd = dict(kw)
+    if name == "push":
+        Minv = kw.get("Minv")
+        kwd["Minv"] = push_plan(Md, None if Minv is None else torch.from_numpy(
+            _as_map(Minv)).to(inp.device), kw.get("order", 1),
+            tuple(inp.shape), out_dim)
+    kern = lambda: kern_fn(inp, Md, out_dim, **kwd)  # noqa: E731
     plain = lambda: plain_fn(inp, Mc, out_dim, **kw)  # noqa: E731
     got, want = kern(), plain()
     torch.cuda.synchronize()
@@ -739,8 +774,28 @@ def _timed(name, record):
     return fn
 
 
+def _timed_captures(record):
+    """Wrap ``FitChunk._capture`` (the warm-up of every branch and the
+    capture of one iteration) so that its seconds, the device's included,
+    add up in ``record['s']`` and its calls in ``record['n']``. Returns the
+    original, to be put back."""
+    fn = fitloop.FitChunk._capture
+
+    def timed(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(self, *args)
+        torch.cuda.synchronize()
+        record["s"] = record.get("s", 0.0) + time.perf_counter() - t0
+        record["n"] = record.get("n", 0) + 1
+
+    fitloop.FitChunk._capture = timed
+    return fn
+
+
 def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
-    """The bench.py workload: coreg + unified rigid + scaling at full width."""
+    """The bench.py workload: coreg + unified rigid + scaling at full width;
+    then (5b) the same fit uncaptured from a copy of the same init."""
     t0 = time.perf_counter()
     gts, rigids, chans = _bench_workload(device, dim, misaligned=True)
     print(f"[bench] phantom + degrade {time.perf_counter() - t0:.2f} s")
@@ -749,7 +804,7 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
     affine_align = _timed("affine_align", coreg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pull.launches = push.launches = pull_grad.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     x, y, sett = unires_torch.init(chans, unires_torch.Settings(
         device=device, vx=1.0, do_print=1, write_out=False, tolerance=0,
@@ -759,17 +814,20 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
     t_init = time.perf_counter() - t0
     run_mod.affine_align = affine_align
     peak_init = torch.cuda.max_memory_allocated()
+    init_copy = copy.deepcopy((x, y, sett))  # for the uncaptured run (5b)
     tri = y[0].dat.clone()
     mat_a = np.asarray(sett.mat_coreg)
     n_grad0, syncs0 = pull_grad.launches, to_host.syncs
+    cap = {}
+    capture = _timed_captures(cap)
     t0 = time.perf_counter()
     y, R, jtv, obj, n_iter = fit_solver(x, y, sett)
     dat_y, _, _, _ = write_data(x, y, sett, jtv=jtv)
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
-    launches = {"pull": pull.launches, "push": push.launches,
-                "pull_grad": pull_grad.launches}
+    fitloop.FitChunk._capture = capture
     syncs = (to_host.syncs - syncs0) / max(n_iter, 1)
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated()
 
     require(coreg["pull_grad"] > 0, "coreg launched no pull_grad")
@@ -784,11 +842,15 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
             "non-finite pose or scale")
     print(f"[bench] dims {tuple(y[0].dim)} x 3 | init {t_init:.3f} s "
           f"(coreg {coreg['s']:.3f} s, {coreg['pull_grad']} pull_grad) | fit "
-          f"{t_fit:.3f} s, {t_fit / n_iter:.4f} s/iter, n_iter {n_iter} | "
-          f"nll {obj[:, 0].tolist()} | psnr {psnr:.3f} dB | "
-          f"sr_vs_trilinear {ratio:.4f} | peak mem init "
-          f"{peak_init / 2 ** 30:.3f} GiB, all {peak / 2 ** 30:.3f} GiB | "
-          f"host syncs/iter {syncs:.1f} | launches {launches}")
+          f"{t_fit:.3f} s, {t_fit / n_iter:.4f} s/iter (host loop: "
+          f"{HOST_LOOP['s_iter']}), of it {cap['n']} warm-up and capture "
+          f"{cap['s']:.3f} s, {(t_fit - cap['s']) / n_iter:.4f} s/iter "
+          f"without, n_iter {n_iter} | nll {obj[:, 0].tolist()} | "
+          f"psnr {psnr:.3f} dB | sr_vs_trilinear {ratio:.4f} | peak mem init "
+          f"{peak_init / 2 ** 30:.3f} GiB (host loop: "
+          f"{HOST_LOOP['init_peak']}), all {peak / 2 ** 30:.3f} GiB | host "
+          f"syncs/iter {syncs:.3f} (host loop: {HOST_LOOP['syncs']}) | "
+          f"launches {launches}")
     print(f"[bench] fitted scl {scl} (simulated 0.1)")
     for c in range(3):
         inv_true = np.linalg.inv(rigids[c])
@@ -801,6 +863,26 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
               f"{after_fit[0]:.5f}, {after_fit[1]:.3f}")
         require(after_coreg[1] < before[1],
                 f"coreg did not reduce channel {c}'s misalignment")
+    require(peak_init <= INIT_PEAK_GIB * 2 ** 30,
+            f"init's peak memory {peak_init / 2 ** 30:.3f} GiB > "
+            f"{INIT_PEAK_GIB} GiB")
+    require(syncs <= SYNCS_PER_ITER,
+            f"{syncs} host syncs per iteration > {SYNCS_PER_ITER}")
+
+    # 5b: the same iterations uncaptured, every decision read on the host
+    syncs0 = to_host.syncs
+    xu, _, _, obj_u, n_u, s_u = _fit_copy(init_copy, capture=False)
+    syncs_u = (to_host.syncs - syncs0) / max(n_u, 1)
+    dq = float(np.abs(_poses(xu) - _poses(x)).max())
+    print(f"[graph] {max_iter} iterations captured (chunks of "
+          f"{min(sett.chunk_iters, max_iter)}) vs uncaptured, from one init: "
+          f"traces equal {np.array_equal(obj, obj_u)}, max |dq| {dq:.3e} | "
+          f"host syncs/iter captured {syncs:.3f}, uncaptured {syncs_u:.3f} | "
+          f"s/iter captured {t_fit / n_iter:.4f} (write_data included), "
+          f"uncaptured {s_u / n_u:.4f}")
+    require(n_u == n_iter and np.array_equal(obj, obj_u),
+            "the captured trace differs from the uncaptured one")
+    require(dq == 0.0, f"the captured poses differ from the uncaptured: {dq}")
     return launches
 
 
@@ -1007,15 +1089,16 @@ def _bench_init(device, dim, max_iter, seed=0, **kw):
         unified_rigid=True, scaling=True, **kw))
 
 
-def _fit_copy(init, **kw):
+def _fit_copy(init, capture=None, **kw):
     """A fit from a deep copy of ``init`` = (x, y, sett) with settings
-    ``kw``; returns (x, y, R, obj, n_iter, seconds)."""
+    ``kw`` (``capture=False``: uncaptured on the card); returns (x, y, R,
+    obj, n_iter, seconds)."""
     x, y, sett = copy.deepcopy(init)
     for k, v in kw.items():
         setattr(sett, k, v)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    y, R, _, obj, n_iter = fit_solver(x, y, sett)
+    y, R, _, obj, n_iter = fit_solver(x, y, sett, capture=capture)
     torch.cuda.synchronize()
     return x, y, R, obj, n_iter, time.perf_counter() - t0
 
@@ -1099,22 +1182,29 @@ def phase_resume(init, tmp, max_iter=8):
 
 
 def phase_trace(init, tmp):
-    """8b: 2 iterations under ``profile_dir``; the trace names the kernels."""
+    """8b: 2 iterations under ``profile_dir``; the trace names the kernels,
+    one kernel event per launch the kernels counted (the graph's replays
+    included)."""
     d = os.path.join(tmp, "trace")
+    _reset_counts()
     _, _, _, obj, n_iter, secs = _fit_copy(init, max_iter=2, profile_dir=d)
+    launches = _counts()
     files = glob.glob(os.path.join(d, "*.pt.trace.json"))
     require(len(files) == 1, f"trace files: {files}")
     size = os.path.getsize(files[0])
     with open(files[0]) as f:
-        text = f.read()
-    named = {k: text.count(k) for k in ("pull_kernel", "push_kernel",
-                                        "pull_grad_kernel")}
+        events = json.load(f)["traceEvents"]
+    named = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                    and f"::{k}<" in e.get("name", ""))
+             for k in ("pull_kernel", "push_kernel", "pull_grad_kernel")}
     print(f"[trace] 2 iterations under profile_dir: {secs:.2f} s, "
-          f"{os.path.basename(files[0])} {size / 1e6:.2f} MB | mentions "
-          f"{named}")
+          f"{os.path.basename(files[0])} {size / 1e6:.2f} MB | kernel "
+          f"events {named} | launches counted {launches}")
     require(size > 0 and n_iter == 2, "empty trace")
-    require(named["pull_kernel"] > 0 and named["push_kernel"] > 0,
-            f"the trace does not name the hand-written kernels: {named}")
+    require(all(named[f"{k}_kernel"] == launches[k] > 0
+                for k in ("pull", "push")),
+            f"the trace does not hold every launch of the hand-written "
+            f"kernels: events {named}, launches {launches}")
 
 
 def phase_batch(init0, full0, tmp, device="cuda", dim=DIM_Y, max_iter=8):
@@ -1240,19 +1330,29 @@ def phase_converged(smi, device="cuda", dim=DIM_Y):
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     tri = y[0].dat.clone()
+    syncs0 = to_host.syncs
+    cap = {}
+    capture = _timed_captures(cap)
     t0 = time.perf_counter()
     y, R, jtv, obj, n_iter = fit_solver(x, y, sett)
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
+    fitloop.FitChunk._capture = capture
+    syncs = (to_host.syncs - syncs0) / max(n_iter, 1)
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     psnr, ratio = _quality(y, gts[0], tri, device)
     print(f"[converged] {smi} | dims {tuple(y[0].dim)} x 3, tolerance 1e-4 "
-          f"| init {t_init:.3f} s | fit {t_fit:.3f} s, n_iter {n_iter}, "
-          f"{t_fit / n_iter:.4f} s/iter | nll first {obj[0, 0]:.6e} last "
-          f"{obj[-1, 0]:.6e} | psnr {psnr:.3f} dB | sr_vs_trilinear "
-          f"{ratio:.4f} | peak mem {peak / 2 ** 30:.3f} GiB | launches "
-          f"{launches}")
+          f"| init {t_init:.3f} s | fit {t_fit:.3f} s, n_iter {n_iter} (host "
+          f"loop: {HOST_LOOP['n_iter']}), {t_fit / n_iter:.4f} s/iter, "
+          f"{(t_fit - cap['s']) / n_iter:.4f} without the warm-up and "
+          f"capture ({cap['s']:.3f} s), host syncs/iter {syncs:.3f} | nll "
+          f"first {obj[0, 0]:.6e} last "
+          f"{obj[-1, 0]:.6e} | psnr {psnr:.3f} dB (host loop: "
+          f"{HOST_LOOP['psnr']}, {psnr - HOST_LOOP['psnr']:+.3f}) | "
+          f"sr_vs_trilinear {ratio:.4f} (host loop: {HOST_LOOP['ratio']}, "
+          f"{ratio - HOST_LOOP['ratio']:+.4f}) | peak mem "
+          f"{peak / 2 ** 30:.3f} GiB | launches {launches}")
     require(n_iter < sett.max_iter, f"no convergence in {n_iter} iterations")
     require(bool(torch.isfinite(jtv).all()) and np.isfinite(R).all(),
             "non-finite result")

@@ -10,7 +10,10 @@ each by its own cases (``kernel_cases``) and timing (``_time_ms``: CUDA
 events around each call, L2 flushed before it; ``_host_ms``: synchronised
 calls as a caller sees them). For each case it prints the max abs
 difference between kernel and plain version (must be 0), the kernel's
-device ms per call three times, and its host ms.
+device ms per call three times, and its host ms. A tree whose kernels read
+their maps from device memory (``ops.resample.push_plan`` exists) is given
+the maps as CUDA tensors and push its plan, as its fit chunk launches them;
+an older tree takes the host maps it was written for.
 """
 import argparse
 import importlib.util
@@ -45,13 +48,25 @@ def main():
           f"{Path(tr.__file__).parents[2]}")
     funcs = {"pull": (tr.pull, tr.pull_plain), "push": (tr.push, tr.push_plain),
              "pull_grad": (tr.pull_grad, tr.pull_grad_plain)}
+    device_maps = hasattr(tr, "push_plan")
     for name, case, inp, Mc, out_dim, kw in cs.kernel_cases("cuda"):
         kern_fn, plain_fn = funcs[name]
-        kern = lambda: kern_fn(inp, Mc, out_dim, **kw)  # noqa: E731
+        M, kwk = Mc, dict(kw)
+        if device_maps:
+            M = torch.from_numpy(tr._as_map(Mc)).cuda()
+            if name == "push":
+                Minv = kw.get("Minv")
+                kwk["Minv"] = tr.push_plan(
+                    M, None if Minv is None
+                    else torch.from_numpy(tr._as_map(Minv)).cuda(),
+                    kw.get("order", 1), tuple(inp.shape), out_dim)
+        kern = lambda: kern_fn(inp, M, out_dim, **kwk)  # noqa: E731
         err = float((kern() - plain_fn(inp, Mc, out_dim, **kw)).abs().max())
         ms = [cs._time_ms(kern, reps=21) for _ in range(3)]
         host = cs._host_ms(kern, reps=21)
-        print(f"[times {args.label}] {name}/{case}: max_abs_err {err:.3e} | "
+        print(f"[times {args.label}] {name}/{case} "
+              f"({'device' if device_maps else 'host'} map): max_abs_err "
+              f"{err:.3e} | "
               f"kernel ms " + " ".join(f"{t:.4f}" for t in ms)
               + f" | host ms {host:.4f}")
 

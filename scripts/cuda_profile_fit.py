@@ -1,12 +1,15 @@
 """Profile steady iterations of the misaligned bench fit on one CUDA card.
 
-    python3 scripts/cuda_profile_fit.py [--first 5] [--count 3]
+    python3 scripts/cuda_profile_fit.py [--first 5] [--count 3] [--uncaptured]
 
 Builds the bench.py workload as ``chip_smoke.py`` phase 5 does (3 channels,
 181x217x181, 4 mm slices, rigid misalignment, even/odd scaling; coreg,
-unified rigid and scaling on), runs init, then the fit with
-``torch.profiler`` (CPU and CUDA activities) around iterations
-[first, first + count). Prints the window's wall time, the device's busy
+unified rigid and scaling on), runs init, then the fit's stepper
+(``pipeline.fit.FitRun``): one chunk of ``first`` iterations (its warm-up
+and the graph's capture included), then a chunk of ``count`` iterations
+with ``torch.profiler`` (CPU and CUDA activities) around it, its one read of
+the host included. ``--uncaptured`` runs the chunk without a graph, each
+decision read on the host. Prints the window's wall time, the device's busy
 time (union of the device events' intervals), its idle share, host syncs
 per iteration, and the device time by kernel group, with launches and ms
 per launch for the port's three kernels.
@@ -50,45 +53,31 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--first", type=int, default=5)
     ap.add_argument("--count", type=int, default=3)
+    ap.add_argument("--uncaptured", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the profile needs a GPU")
-    print(f"[profile] {chip_smoke.phase_device()}")
+    print(f"[profile] {chip_smoke.phase_device()} | "
+          f"{'uncaptured' if args.uncaptured else 'captured'}")
     _, _, chans = chip_smoke._bench_workload("cuda", chip_smoke.DIM_Y, True)
     x, y, sett = unires_torch.init(chans, unires_torch.Settings(
         device="cuda", vx=1.0, do_print=0, write_out=False, tolerance=0,
         max_iter=args.first + args.count, sched_num=3, reg_scl=4.0,
         do_coreg=True, unified_rigid=True, scaling=True))
 
+    run = fit_mod.FitRun(x, y, sett, capture=not args.uncaptured)
+    run.step(args.first)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
-    make = fit_mod.make_fit_iteration
-
-    def make_profiled(*a, **kw):
-        iterate = make(*a, **kw)
-        count = [0]
-
-        def step(*sa, **skw):
-            if count[0] == args.first:  # the window excludes start/stop
-                prof.start()
-                torch.cuda.synchronize()
-                window.update(t0=time.perf_counter(), s0=to_host.syncs)
-            out = iterate(*sa, **skw)
-            count[0] += 1
-            if count[0] == args.first + args.count:
-                torch.cuda.synchronize()
-                window.update(t1=time.perf_counter(), s1=to_host.syncs)
-                prof.stop()
-            return out
-
-        step.subs = iterate.subs
-        return step
-
-    fit_mod.make_fit_iteration = make_profiled
-    try:
-        fit_mod.fit(x, y, sett)
-    finally:
-        fit_mod.make_fit_iteration = make
+    torch.cuda.synchronize()
+    prof.start()  # the window excludes start/stop
+    window.update(t0=time.perf_counter(), s0=to_host.syncs)
+    rows = run.step(args.count)
+    torch.cuda.synchronize()
+    window.update(t1=time.perf_counter(), s1=to_host.syncs)
+    prof.stop()
+    if len(rows) != args.count:
+        raise RuntimeError(f"the profiled chunk ran {len(rows)} iterations")
 
     wall = 1e3 * (window["t1"] - window["t0"])
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]

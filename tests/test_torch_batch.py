@@ -184,6 +184,7 @@ def test_fit_batch_max_iter_0_returns_identities():
 def test_fit_batch_logs_one_line_per_round(capsys):
     xs, ys, sett = _inits(unires_torch, SUBJECTS, max_iter=2)
     sett.do_print = 1
+    sett.chunk_iters = 1  # a round is a chunk: two of one iteration each
     fit_batch(xs, ys, sett)
     lines = [ln for ln in capsys.readouterr().out.splitlines()
              if ln.startswith("batch-fit:")]

@@ -24,7 +24,7 @@ from unires_torch.ops.resample import pull
 from unires_torch.pipeline.convert import convert_state
 from unires_torch.solvers import rigid as trig
 from unires_torch.solvers import scaling_gn as tsc
-from unires_torch.solvers.fitloop import make_fit_iteration
+from unires_torch.solvers.fitloop import make_fit_chunk as t_make_fit_chunk
 from unires_tpu import Settings, init
 from unires_tpu.pipeline.fit import get_sched
 from unires_tpu.solvers import rigid as jrig
@@ -219,13 +219,15 @@ def loop_updates(request):
     out["jax"] = dict(delta=np.asarray(dj["delta"]), ll=float(dj["ll"]),
                       g=np.asarray(dj["g"]), H=np.asarray(dj["H"]),
                       q=np.asarray(qj), s=float(sj_new))
-    it = make_fit_iteration(xt, yt, st)
+    it = t_make_fit_chunk(xt, yt, st, 1)
     yst, datt = torch.from_numpy(gt), xt[0][0].dat
     delta, ll, extra = it.rigid_stats(yst, datt, q0, s0, 0, debug=True)
     q_new = it.rigid_ls(yst, datt, q0, s0, 0, delta, ll)
     Ms, _ = it.maps(q0[None])
-    out["torch"] = dict(delta=delta, ll=ll, g=extra["g"], H=extra["H"],
-                        q=q_new, s=it.scaling_obs(yst, datt, Ms[0][0], s0, 0))
+    out["torch"] = dict(delta=delta.numpy(), ll=float(ll),
+                        g=extra["g"].numpy(), H=extra["H"].numpy(),
+                        q=q_new.numpy(),
+                        s=float(it.scaling_obs(yst, datt, Ms[0][0], s0, 0)))
     return out
 
 

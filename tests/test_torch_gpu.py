@@ -14,8 +14,13 @@ traces relative 1e-4 (float32 sums in another order), 1e-3 with the rigid
 and scaling updates on (they feed the sums' differences back into the fit);
 co-registration card vs CPU 0.1 mm / 2e-3; the sharded step on a world of
 one (NCCL) against ``make_admm_step`` as tests/test_torch_sharding.py holds
-it (ys 2e-3 of scale, z and w 1e-3, objective rtol 2e-3).
+it (ys 2e-3 of scale, z and w 1e-3, objective rtol 2e-3); maps read from
+device memory against staged host maps, a captured graph and its IF nodes
+against eager launches, and the captured fit chunk against the uncaptured
+one, all exact.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -315,3 +320,129 @@ def test_sharded_step_world_of_one(cuda, tmp_path):
     assert float((got[2][0] - want[2]).abs().max()) <= 1e-3
     np.testing.assert_allclose(got[3].cpu().numpy(), want[4].cpu().numpy(),
                                rtol=2e-3)
+
+
+# --- maps in device memory, conditional nodes, the captured fit chunk ------------
+
+@pytest.mark.parametrize("name,mat,out_dim", MAPS)
+def test_device_maps_match_host_maps(cuda, name, mat, out_dim):
+    """A map given as a tensor on the card is read from device memory;
+    push's plan computed there (float64 torch ops) or given: bitwise the
+    staged host map's results, one launch each."""
+    vol, vals = _vol(IN_DIM, 11, cuda), _vol(out_dim, 12, cuda)
+    M = tr.affine_to_M(mat)
+    Md = torch.from_numpy(M).to(cuda)
+    plan = tr.push_plan(Md, None, 1, out_dim, IN_DIM)
+    n0 = (tr.pull.launches, tr.push.launches, tr.pull_grad.launches)
+    got = (tr.pull(vol, Md, out_dim), tr.push(vals, Md, IN_DIM),
+           tr.push(vals, Md, IN_DIM, Minv=plan), tr.pull_grad(vol, Md, out_dim))
+    want = (tr.pull(vol, M, out_dim), tr.push(vals, M, IN_DIM),
+            tr.push(vals, M, IN_DIM), tr.pull_grad(vol, M, out_dim))
+    torch.cuda.synchronize()
+    assert (tr.pull.launches, tr.push.launches, tr.pull_grad.launches) == (
+        n0[0] + 2, n0[1] + 4, n0[2] + 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_captured_pull_follows_its_device_map(cuda):
+    """A graph captured at one map replays at the map its buffer holds."""
+    from unires_torch.utils.graph import capture
+
+    vol = _vol(IN_DIM, 13, cuda)
+    maps = [tr.affine_to_M(m) for _, m, _ in MAPS[:3]]
+    Md = torch.from_numpy(maps[0]).to(cuda)
+    out = torch.empty(IN_DIM, device=cuda)
+    out.copy_(tr.pull(vol, Md, IN_DIM))  # launched once before the capture
+    graph = capture(lambda: out.copy_(tr.pull(vol, Md, IN_DIM)))
+    for M in maps[1:]:
+        Md.copy_(torch.from_numpy(M))
+        n0 = tr.pull.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        assert tr.pull.launches == n0 + 1  # counted by the kernel
+        assert torch.equal(out, tr.pull_plain(vol, M, IN_DIM))
+
+
+def test_if_nodes_run_only_where_their_predicate_holds(cuda):
+    """Nested IF nodes around the kernels, a matrix product and copies: a
+    false predicate launches nothing of its body."""
+    from unires_torch.utils.graph import capture, cond, forced
+
+    vol = _vol(IN_DIM, 14, cuda)
+    Md = torch.from_numpy(tr.affine_to_M(MAPS[2][1])).to(cuda)
+    A = torch.rand(17, 17, device=cuda)
+    out = torch.zeros(IN_DIM, device=cuda)
+    outer = torch.zeros((), dtype=torch.bool, device=cuda)
+    inner = torch.zeros((), dtype=torch.bool, device=cuda)
+
+    def step():
+        def body():
+            out.copy_(tr.pull(vol, Md, IN_DIM) @ A)
+            cond(inner, lambda: out.copy_(tr.push(out, Md, IN_DIM)))
+        cond(outer, body)
+
+    with forced():
+        step()
+    graph = capture(step)
+    want_pull = tr.pull_plain(vol, Md.cpu().numpy(), IN_DIM).to(cuda) @ A
+    for o, i in ((False, True), (True, False), (True, True)):
+        outer.fill_(o)
+        inner.fill_(i)
+        out.zero_()
+        n0 = (tr.pull.launches, tr.push.launches)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert (tr.pull.launches - n0[0], tr.push.launches - n0[1]) == (
+            int(o), int(o and i))
+        if not o:
+            assert float(out.abs().max()) == 0.0
+        elif not i:
+            assert torch.equal(out, want_pull)
+
+
+def test_captured_chunk_matches_uncaptured(cuda):
+    """The fit chunk captured as a graph against the same chunk run
+    uncaptured, from one init (rigid and scaling on): the same launches in
+    the same order, so equal traces, poses, scales and volumes; and the
+    captured fit waits for the host once before its capture and reads it
+    once per chunk."""
+    from unires_torch.pipeline.fit import FitRun
+    from unires_torch.utils.host import to_host
+
+    vol = brain_phantom(seed=0)[66:114, 80:136, 66:114]
+    rng = np.random.default_rng(4)
+    chans = []
+    for ax, rp in ((2, [1.2, -0.8, 0.5, 0.015, -0.01, 0.012]),
+                   (0, [-1.0, 0.7, -0.6, -0.012, 0.01, -0.015])):
+        vx = [1.0, 1.0, 1.0]
+        vx[ax] = 4.0
+        dim_x = list(vol.shape)
+        dim_x[ax] = int(np.ceil(vol.shape[ax] / 4.0))
+        po = proj_info(vol.shape, np.eye(4), tuple(dim_x), affine_diag(vx),
+                       rigid=affine_matrix_classic(rp), prof_ip=2, prof_tp=0,
+                       scl=0.1)
+        x = unires_torch.proj_apply("A", torch.from_numpy(vol), po,
+                                    "super-resolution").numpy()
+        chans.append([x + rng.normal(0.0, 75.0, x.shape).astype(np.float32),
+                      affine_diag(vx)])
+    init = unires_torch.init([chans], unires_torch.Settings(
+        device="cuda", vx=1.0, do_coreg=False, unified_rigid=True,
+        scaling=True, do_print=0, max_iter=6, chunk_iters=4, tolerance=0,
+        write_out=False))
+    runs = {}
+    for captured in (True, False):
+        x, y, s = (copy.deepcopy(v) for v in init)
+        run = FitRun(x, y, s, capture=captured)
+        n0 = to_host.syncs
+        while run.live:
+            run.step()
+        runs[captured] = (run, to_host.syncs - n0)
+    (a, reads_a), (b, reads_b) = runs[True], runs[False]
+    assert reads_a == 1 + 2 and reads_b > 2 * 6  # two chunks: 4 + 2
+    np.testing.assert_array_equal(np.asarray(a.obj_trace),
+                                  np.asarray(b.obj_trace))
+    np.testing.assert_array_equal(a.state.host["q"], b.state.host["q"])
+    np.testing.assert_array_equal(a.state.host["scl"], b.state.host["scl"])
+    assert np.abs(a.state.host["q"]).max() > 0.05  # the poses moved
+    assert torch.equal(a.state.ys, b.state.ys)

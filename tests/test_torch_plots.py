@@ -103,11 +103,12 @@ def test_fit_with_every_dashboard_gives_the_same_trace(chans, plain_trace,
     capsys.readouterr()
     assert n == 6
     np.testing.assert_array_equal(obj, plain_trace)
-    # per iteration: a slice figure per channel, the convergence, the JTV
-    assert len(drawn) == 6 * 4
-    assert drawn[:4] == [("show_slices", "y (channel 0) @ iter 1"),
-                         ("show_slices", "y (channel 1) @ iter 1"),
-                         ("plot_convergence", None), ("show_slices", "JTV")]
+    # per chunk (the 6 iterations are one chunk of chunk_iters 16): a
+    # slice figure per channel, the convergence, the JTV
+    assert len(drawn) == 4
+    assert drawn == [("show_slices", "y (channel 0) @ iter 6"),
+                     ("show_slices", "y (channel 1) @ iter 6"),
+                     ("plot_convergence", None), ("show_slices", "JTV")]
 
 
 def test_profile_dir_writes_a_trace_and_leaves_the_fit_alone(
@@ -128,7 +129,7 @@ def test_profiler_is_closed_when_the_fit_raises(chans, tmp_path, monkeypatch):
     x, y, sett = unires_torch.init(chans, unires_torch.Settings(
         **dict(KW, profile_dir=d)))
 
-    def boom(self):
+    def boom(self, *args):
         raise RuntimeError("step failed")
 
     monkeypatch.setattr(fit_mod.FitRun, "step", boom)

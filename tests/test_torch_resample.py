@@ -460,17 +460,20 @@ def test_pull_grad_shared_products_equal_plain_bitwise(name, M, out_dim):
 @pytest.mark.parametrize("order", [0, 1])
 @pytest.mark.parametrize("name,lin", REACH_MAPS)
 def test_push_plan_is_the_uncached_plan(name, lin, order, given_minv):
-    """The push wrapper's cached host plan (inverse map, window, reach)
-    equals the one computed afresh, and a second call returns the cache's."""
+    """The push wrapper's cached host plan (map, inverse map, reach, window,
+    packed as the kernel reads them) equals the one computed afresh, and a
+    second call returns the cache's."""
     M, src_dim = _reach_map(lin, IN_DIM)
     Minv = tr.inverse_map(M)
     key = (M.tobytes(), Minv.tobytes() if given_minv else None, order,
            src_dim, IN_DIM)
     plan = tr._push_plan(*key)
-    np.testing.assert_array_equal(plan[0], Minv)
-    assert plan[1] == tr.push_window(M)
+    assert plan.shape == (tr.PLAN_SIZE,) and plan.dtype == np.float32
+    np.testing.assert_array_equal(plan[:12], M.ravel())
+    np.testing.assert_array_equal(plan[12:24], Minv.ravel())
     np.testing.assert_array_equal(
-        plan[2], tr.push_reach(M, Minv, order, src_dim, IN_DIM))
+        plan[24:27], tr.push_reach(M, Minv, order, src_dim, IN_DIM))
+    assert tuple(plan[27:30]) == tr.push_window(M)
     assert tr._push_plan(*key) is plan
 
 

@@ -8,8 +8,16 @@
 //         are exactly 0.
 //   push  out[v] = sum_o w(o, v) * vals[o]        (push = pull^T)
 //   pull_grad  out[o, d] = d pull(o) / d g_d(o)   (trilinear; same bound/FOV)
-// M and Minv are (3,4) float32 maps passed by value, the CUDA counterpart of
-// the Pallas kernels' scalar prefetch. Volumes are float32, C order (X, Y, Z).
+// M and Minv are (3,4) float32 maps that the kernels read from DEVICE memory
+// (every thread loads the 12 floats once with __ldg; the address is uniform
+// across the block, so the load is an L1 broadcast), so that a map may change
+// between two replays of a captured CUDA graph: the CUDA counterpart of the
+// Pallas kernels' scalar prefetch. Push reads its plan (M, Minv, the reach and
+// the window) from one 32-float device buffer that ops/resample.py:push_plan
+// computes on the device. Volumes are float32, C order (X, Y, Z).
+// Every kernel counts its own launches: thread 0 of block 0 adds one to a
+// device counter (and one more to the FOV = true count), so the launches made
+// by the replays of a graph are counted as the eager ones are.
 // Every kernel repeats its plain PyTorch version's roundings in the same
 // order (unires_torch/ops/resample.py), so kernel and plain version agree to
 // the bit.
@@ -38,6 +46,33 @@ constexpr float kFar = 1048576.0f;
 struct Map34 {
   float m[12];  // row-major (3, 4)
 };
+
+// The map from device memory: three 16-byte loads (the wrapper checks the
+// alignment), the same address in every thread.
+__device__ __forceinline__ Map34 load_map_dev(const float* __restrict__ p) {
+  Map34 M;
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float4 v = __ldg(q + r);
+    M.m[4 * r] = v.x;
+    M.m[4 * r + 1] = v.y;
+    M.m[4 * r + 2] = v.z;
+    M.m[4 * r + 3] = v.w;
+  }
+  return M;
+}
+
+// One launch more in the kernel's device counter (and in its FOV = true
+// count): thread 0 of block 0 only.
+template <bool FOV>
+__device__ __forceinline__ void count_launch(unsigned long long* cnt) {
+  if (cnt != nullptr && (blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x |
+                         threadIdx.y) == 0) {
+    atomicAdd(cnt, 1ULL);
+    if (FOV) atomicAdd(cnt + 1, 1ULL);
+  }
+}
 
 // g_d = M[d,0]*x + M[d,1]*y + M[d,2]*z + M[d,3], rounded after every product
 // and sum in this order. The explicit _rn intrinsics stop nvcc from
@@ -189,8 +224,10 @@ __device__ __forceinline__ void gather_corners(
 template <int ORDER, bool FOV>
 __global__ void __launch_bounds__(kLanesZ * kRowsY)
     pull_kernel(const float* __restrict__ vol, float* __restrict__ out,
-                Map34 M, int nx, int ny, int nz, int ox, int oy, int oz,
-                Box fov) {
+                const float* __restrict__ mp, int nx, int ny, int nz, int ox,
+                int oy, int oz, Box fov, unsigned long long* cnt) {
+  count_launch<FOV>(cnt);
+  const Map34 M = load_map_dev(mp);
   const int j = blockIdx.y * kRowsY + threadIdx.y;
   const int k = blockIdx.x * kLanesZ + threadIdx.x;
   if (j >= oy || k >= oz) return;
@@ -286,17 +323,26 @@ __global__ void __launch_bounds__(kLanesZ * kRowsY)
 template <int ORDER, bool FOV>
 __global__ void __launch_bounds__(kLanesZ * kRowsY)
     push_kernel(const float* __restrict__ vals, float* __restrict__ out,
-                Map34 M, Map34 Minv, float rx, float ry, float rz, int sx,
-                int sy, int sz, int tx, int ty, int tz, int wx, int wy,
-                int wz, Box fov) {
+                const float* __restrict__ plan, int sx, int sy, int sz,
+                int tx, int ty, int tz, int wx, int wy, int wz, Box fov,
+                unsigned long long* cnt) {
+  count_launch<FOV>(cnt);
   const int vk = blockIdx.x * kLanesZ + threadIdx.x;
   const int vj = blockIdx.y * kRowsY + threadIdx.y;
   const int vi = blockIdx.z;
   if (vk >= tz || vj >= ty) return;
+  // the plan (ops/resample.py: push_plan): M, Minv, reach (3), window (3)
+  const Map34 M = load_map_dev(plan);
+  const Map34 Minv = load_map_dev(plan + 12);
+  const float4 p0 = __ldg(reinterpret_cast<const float4*>(plan + 24));
+  const float4 p1 = __ldg(reinterpret_cast<const float4*>(plan + 28));
   float c[3];
   map_point(Minv, (float)vi, (float)vj, (float)vk, c);
-  const float r[3] = {rx, ry, rz};
-  const int w[3] = {wx, wy, wz}, s[3] = {sx, sy, sz};
+  const float r[3] = {p0.x, p0.y, p0.z};
+  // a window given by the caller (>= 0) or the plan's
+  const int w[3] = {wx >= 0 ? wx : (int)p0.w, wy >= 0 ? wy : (int)p1.x,
+                    wz >= 0 ? wz : (int)p1.y};
+  const int s[3] = {sx, sy, sz};
   int lo[3], hi[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
@@ -436,10 +482,11 @@ __device__ __forceinline__ void pull_grad_rows(
 }
 
 template <int LZ, int RY, int RX>
-__global__ void __launch_bounds__(LZ * RY)
-    pull_grad_kernel(const float* __restrict__ vol, float* __restrict__ out,
-                     Map34 M, int nx, int ny, int nz, int ox, int oy,
-                     int oz) {
+__device__ __forceinline__ void pull_grad_tile(const float* __restrict__ vol,
+                                               float* __restrict__ out,
+                                               const Map34& M, int nx, int ny,
+                                               int nz, int ox, int oy,
+                                               int oz) {
   const int j = blockIdx.y * RY + threadIdx.y;
   const int k = blockIdx.x * LZ + threadIdx.x;
   if (j >= oy || k >= oz) return;
@@ -456,6 +503,28 @@ __global__ void __launch_bounds__(LZ * RY)
   }
 }
 
+template <int LZ, int RY, int RX>
+__global__ void __launch_bounds__(LZ * RY)
+    pull_grad_kernel(const float* __restrict__ vol, float* __restrict__ out,
+                     const float* __restrict__ mp, int nx, int ny, int nz,
+                     int ox, int oy, int oz, unsigned long long* cnt) {
+  count_launch<false>(cnt);
+  pull_grad_tile<LZ, RY, RX>(vol, out, load_map_dev(mp), nx, ny, nz, ox, oy,
+                             oz);
+}
+
+// The map by value and no count: the block-shape sweep of
+// scripts/pull_grad_variants.cu (which includes this file) launches this
+// form; the library never instantiates it.
+template <int LZ, int RY, int RX>
+__global__ void __launch_bounds__(LZ * RY)
+    pull_grad_kernel(const float* __restrict__ vol, float* __restrict__ out,
+                     Map34 M, int nx, int ny, int nz, int ox, int oy,
+                     int oz) {
+  pull_grad_tile<LZ, RY, RX>(vol, out, M, nx, ny, nz, ox, oy, oz);
+}
+
+// A host map (12 floats) by value, for scripts/pull_grad_variants.cu.
 inline Map34 load_map(const float* m) {
   Map34 M;
   for (int q = 0; q < 12; ++q) M.m[q] = m[q];
@@ -475,41 +544,41 @@ inline Box load_box(const float* fov) {
 
 template <int ORDER>
 void launch_pull(dim3 grid, dim3 block, cudaStream_t s, const float* vol,
-                 float* out, const Map34& M, int nx, int ny, int nz, int ox,
-                 int oy, int oz, const float* fov) {
+                 float* out, const float* m, int nx, int ny, int nz, int ox,
+                 int oy, int oz, const float* fov, unsigned long long* cnt) {
   if (fov)
-    pull_kernel<ORDER, true><<<grid, block, 0, s>>>(vol, out, M, nx, ny, nz,
-                                                    ox, oy, oz, load_box(fov));
+    pull_kernel<ORDER, true><<<grid, block, 0, s>>>(
+        vol, out, m, nx, ny, nz, ox, oy, oz, load_box(fov), cnt);
   else
     pull_kernel<ORDER, false><<<grid, block, 0, s>>>(
-        vol, out, M, nx, ny, nz, ox, oy, oz, Box());
+        vol, out, m, nx, ny, nz, ox, oy, oz, Box(), cnt);
 }
 
 template <int ORDER>
 void launch_push(dim3 grid, dim3 block, cudaStream_t s, const float* vals,
-                 float* out, const Map34& M, const Map34& Minv,
-                 const float* reach, int sx, int sy, int sz, int tx, int ty,
-                 int tz, int wx, int wy, int wz, const float* fov) {
+                 float* out, const float* plan, int sx, int sy, int sz,
+                 int tx, int ty, int tz, int wx, int wy, int wz,
+                 const float* fov, unsigned long long* cnt) {
   if (fov)
     push_kernel<ORDER, true><<<grid, block, 0, s>>>(
-        vals, out, M, Minv, reach[0], reach[1], reach[2], sx, sy, sz, tx, ty,
-        tz, wx, wy, wz, load_box(fov));
+        vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, load_box(fov),
+        cnt);
   else
     push_kernel<ORDER, false><<<grid, block, 0, s>>>(
-        vals, out, M, Minv, reach[0], reach[1], reach[2], sx, sy, sz, tx, ty,
-        tz, wx, wy, wz, Box());
+        vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, Box(), cnt);
 }
 
 }  // namespace
 
 extern "C" {
 
-// vol (nx, ny, nz) -> out (ox, oy, oz); m: host pointer to 12 floats; fov:
-// null (bounds [-0.5, n - 0.5]) or a host pointer to 6 floats.
+// vol (nx, ny, nz) -> out (ox, oy, oz); m: device pointer to the 12 floats of
+// the map (16-byte aligned); fov: null (bounds [-0.5, n - 0.5]) or a host
+// pointer to 6 floats; cnt: null or the device counter (2 x u64: launches,
+// FOV = true launches).
 int unires_pull(const float* vol, float* out, const float* m,
                 const float* fov, int nx, int ny, int nz, int ox, int oy,
-                int oz, int order, void* stream) {
-  const Map34 M = load_map(m);
+                int oz, int order, unsigned long long* cnt, void* stream) {
   if ((long long)ox * oy * oz == 0) return (int)cudaGetLastError();
   const dim3 block(kLanesZ, kRowsY);
   const dim3 grid((unsigned)((oz + kLanesZ - 1) / kLanesZ),
@@ -517,48 +586,50 @@ int unires_pull(const float* vol, float* out, const float* m,
                   (unsigned)((ox + kRowsX - 1) / kRowsX));
   cudaStream_t s = (cudaStream_t)stream;
   if (order == 0)
-    launch_pull<0>(grid, block, s, vol, out, M, nx, ny, nz, ox, oy, oz, fov);
+    launch_pull<0>(grid, block, s, vol, out, m, nx, ny, nz, ox, oy, oz, fov,
+                   cnt);
   else
-    launch_pull<1>(grid, block, s, vol, out, M, nx, ny, nz, ox, oy, oz, fov);
+    launch_pull<1>(grid, block, s, vol, out, m, nx, ny, nz, ox, oy, oz, fov,
+                   cnt);
   return (int)cudaGetLastError();
 }
 
 // vals (sx, sy, sz) on pull's output grid -> out (tx, ty, tz) on pull's
-// input grid; m, minv: host pointers to 12 floats; reach: host pointer to 3
-// floats (ops/resample.py: push_reach); fov: null or a host pointer to 6
-// floats, as pull's; (wx, wy, wz): window.
-int unires_push(const float* vals, float* out, const float* m,
-                const float* minv, const float* reach, const float* fov,
-                int sx, int sy, int sz, int tx, int ty, int tz, int wx, int wy,
-                int wz, int order, void* stream) {
-  const Map34 M = load_map(m);
-  const Map34 Minv = load_map(minv);
+// input grid; plan: device pointer to the 32 floats of ops/resample.py:
+// push_plan (M, Minv, reach, window; 16-byte aligned); fov: null or a host
+// pointer to 6 floats, as pull's; (wx, wy, wz): the caller's window, or -1
+// for the plan's; cnt as pull's.
+int unires_push(const float* vals, float* out, const float* plan,
+                const float* fov, int sx, int sy, int sz, int tx, int ty,
+                int tz, int wx, int wy, int wz, int order,
+                unsigned long long* cnt, void* stream) {
   if ((long long)tx * ty * tz == 0) return (int)cudaGetLastError();
   const dim3 block(kLanesZ, kRowsY);
   const dim3 grid((unsigned)((tz + kLanesZ - 1) / kLanesZ),
                   (unsigned)((ty + kRowsY - 1) / kRowsY), (unsigned)tx);
   cudaStream_t s = (cudaStream_t)stream;
   if (order == 0)
-    launch_push<0>(grid, block, s, vals, out, M, Minv, reach, sx, sy, sz, tx,
-                   ty, tz, wx, wy, wz, fov);
+    launch_push<0>(grid, block, s, vals, out, plan, sx, sy, sz, tx, ty, tz,
+                   wx, wy, wz, fov, cnt);
   else
-    launch_push<1>(grid, block, s, vals, out, M, Minv, reach, sx, sy, sz, tx,
-                   ty, tz, wx, wy, wz, fov);
+    launch_push<1>(grid, block, s, vals, out, plan, sx, sy, sz, tx, ty, tz,
+                   wx, wy, wz, fov, cnt);
   return (int)cudaGetLastError();
 }
 
-// vol (nx, ny, nz) -> out (ox, oy, oz, 3); m: host pointer to 12 floats.
+// vol (nx, ny, nz) -> out (ox, oy, oz, 3); m: device pointer to 12 floats;
+// cnt as pull's.
 int unires_pull_grad(const float* vol, float* out, const float* m, int nx,
-                     int ny, int nz, int ox, int oy, int oz, void* stream) {
-  const Map34 M = load_map(m);
+                     int ny, int nz, int ox, int oy, int oz,
+                     unsigned long long* cnt, void* stream) {
   if ((long long)ox * oy * oz == 0) return (int)cudaGetLastError();
   const dim3 block(kGradLanesZ, kGradRowsY);
   const dim3 grid((unsigned)((oz + kGradLanesZ - 1) / kGradLanesZ),
                   (unsigned)((oy + kGradRowsY - 1) / kGradRowsY),
                   (unsigned)((ox + kRowsX - 1) / kRowsX));
   pull_grad_kernel<kGradLanesZ, kGradRowsY, kRowsX>
-      <<<grid, block, 0, (cudaStream_t)stream>>>(vol, out, M, nx, ny, nz, ox,
-                                                 oy, oz);
+      <<<grid, block, 0, (cudaStream_t)stream>>>(vol, out, m, nx, ny, nz, ox,
+                                                 oy, oz, cnt);
   return (int)cudaGetLastError();
 }
 

@@ -83,7 +83,7 @@ def make_obs_suite(po: ProjOp, method: Method) -> dict:
 
     def AtA(dat, M, Minv, scl):
         out = project(dat, M)
-        out = apply_scaling(out, 2.0 * float(scl), axis)
+        out = apply_scaling(out, 2.0 * scl, axis)
         out = blur_up_sep(out, kers, ratio)
         return push_fn(out, M, Minv)
 

@@ -25,12 +25,14 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/resample.cu (every pointer and the stream as c_void_p,
-# so that ctypes never truncates a 64-bit address)
+# C signatures of csrc/resample.cu and csrc/graph.cu (every pointer and the
+# stream as c_void_p, so that ctypes never truncates a 64-bit address)
 _SIGNATURES = {
-    "unires_pull": [_VP] * 4 + [_I] * 7 + [_VP],
-    "unires_push": [_VP] * 6 + [_I] * 10 + [_VP],
-    "unires_pull_grad": [_VP, _VP, _VP] + [_I] * 6 + [_VP],
+    "unires_pull": [_VP] * 4 + [_I] * 7 + [_VP, _VP],
+    "unires_push": [_VP] * 4 + [_I] * 10 + [_VP, _VP],
+    "unires_pull_grad": [_VP, _VP, _VP] + [_I] * 6 + [_VP, _VP],
+    "unires_if_begin": [_VP] * 3,
+    "unires_if_end": [_VP],
 }
 
 

@@ -18,16 +18,22 @@ Each wrapper counts its kernel launches in ``pull.launches`` /
 kernels' ``fov`` instantiation also in ``pull.fov_launches`` /
 ``push.fov_launches``.
 
-Maps: ``M`` is the (3, 4) float32 map from output voxel to input voxel, held
-on the host (numpy) — it is 12 numbers that reach the kernel as launch
-arguments, the CUDA counterpart of the Pallas kernels' scalar prefetch. The
-``fov`` override of pull and push, a (3, 2) array of per-axis bounds
-[lo_d, hi_d] in place of [-0.5, n_d - 0.5] (the slab decomposition of
-``parallel.spatial`` passes the global field of view in a slab's frame), is
-held on the host too and reaches the kernel the same way.
+Maps: ``M`` is the (3, 4) float32 map from output voxel to input voxel. The
+kernels read it from DEVICE memory, so that a map may change between two
+replays of a captured CUDA graph: a CUDA tensor is passed as it is, and a
+host (numpy) map is staged through pinned memory with ``non_blocking=True``
+(never inside a capture). Push reads its plan from one 32-float device
+buffer (:func:`push_plan`: M, Minv, the reach and the window, computed in
+float64 torch ops on the maps' device, nothing read back); ``Minv`` may be
+given as that plan. The ``fov`` override of pull and push, a (3, 2) array of
+per-axis bounds [lo_d, hi_d] in place of [-0.5, n_d - 0.5] (the slab
+decomposition of ``parallel.spatial`` passes the global field of view in a
+slab's frame), is a host array passed by value: it is fixed for a solver.
 
-push visits, for each target, only the sources within
-:func:`push_reach` of ``Minv . v`` (on the host, from the maps and shapes).
+push visits, for each target, only the sources within :func:`push_reach` of
+``Minv . v``. The launch counts are kept by the kernels themselves, on the
+device (:class:`KernelCount`), so that the launches of a graph's replays
+count as the eager ones do.
 """
 from __future__ import annotations
 
@@ -37,6 +43,9 @@ import numpy as np
 import torch
 
 from .cuda_build import check, kernels
+from .lie import inv33, matvec3
+
+PLAN_SIZE = 32  # floats of a push plan: M, Minv, reach (3), window (3), pad
 
 
 def affine_to_M(mat) -> np.ndarray:
@@ -108,16 +117,71 @@ def push_reach(M, Minv, order, src_dim, tgt_dim) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _push_plan(m: bytes, minv: bytes | None, order: int, src_dim: tuple,
-               tgt_dim: tuple) -> tuple:
-    """(Minv, window, reach) of a push, from the maps' bytes. Cached: a
-    pose's plan is computed once however many pushes run at it (11 per
-    misaligned fit iteration). The arrays are shared: callers only read
-    them."""
+               tgt_dim: tuple) -> np.ndarray:
+    """The packed plan (:data:`PLAN_SIZE` floats, :func:`push_plan`'s
+    layout) of a push at a host map, from the maps' bytes, on the host.
+    Cached: a pose's plan is computed once however many pushes run at it.
+    The array is shared: callers only read it."""
     M = np.frombuffer(m, np.float32).reshape(3, 4)
     Minv = (inverse_map(M) if minv is None
             else np.frombuffer(minv, np.float32).reshape(3, 4))
-    return (Minv, push_window(M),
-            push_reach(M, Minv, order, src_dim, tgt_dim))
+    return np.concatenate([
+        M.ravel(), Minv.ravel(), push_reach(M, Minv, order, src_dim, tgt_dim),
+        np.asarray(push_window(M), np.float32), np.zeros(2, np.float32)])
+
+
+def _rowdot(A: torch.Tensor, v) -> torch.Tensor:
+    """A (..., 3, 3) times the host 3-vector v, summed left to right."""
+    return A[..., 0] * float(v[0]) + A[..., 1] * float(v[1]) \
+        + A[..., 2] * float(v[2])
+
+
+def push_plan(M: torch.Tensor, Minv=None, order: int = 1, src_dim=None,
+              tgt_dim=None) -> torch.Tensor:
+    """The plan of a push at device maps, on their device: a (...,
+    :data:`PLAN_SIZE`) float32 tensor = (M, Minv, reach (3), window (3), 0,
+    0) per leading index of ``M`` (..., 3, 4) float32.
+
+    :func:`push_window` and :func:`push_reach` in float64 torch ops: the
+    window from the inverse of M's float64 value, floor(1.25 L + 0.5); the
+    reach with its 2^-20 and 2^-10 margins. ``Minv`` None: the float32 of
+    M's float64 inverse (:func:`inverse_map`). Nothing is read back, so the
+    plan can be computed inside a captured graph. ``src_dim`` is the source
+    grid (pull's output), ``tgt_dim`` the target grid (pull's input).
+    """
+    M64 = M.to(torch.float64)
+    A, m = M64[..., :3], M64[..., 3]
+    Ainv = inv33(A)
+    exact = torch.cat([Ainv, -matvec3(Ainv, m)[..., None]], dim=-1)
+    if Minv is None:
+        Minv = (exact + 0.0).to(torch.float32)  # no -0 where numpy has 0
+    Mi = Minv.to(torch.float64)
+    absAinv = Ainv.abs()
+    window = torch.floor(absAinv.sum(dim=-1) * 1.25 + 0.5)
+    mag_g = (_rowdot(A.abs(), src_dim) + m.abs()).amax(dim=-1, keepdim=True)
+    dev = (Mi - exact).abs()
+    mag_c = _rowdot(Mi[..., :3].abs(), tgt_dim) + Mi[..., 3].abs()
+    h = 1.0 if order else 0.5
+    reach = (h * absAinv.sum(dim=-1) * (1.0 + 2.0 ** -20 * mag_g)
+             + _rowdot(dev[..., :3], tgt_dim) + dev[..., 3]
+             + 2.0 ** -20 * mag_c + 2.0 ** -10)
+    pad = torch.zeros(M.shape[:-2] + (2,), dtype=torch.float32,
+                      device=M.device)
+    return torch.cat([M.reshape(M.shape[:-2] + (12,)),
+                      Minv.reshape(M.shape[:-2] + (12,)),
+                      reach.to(torch.float32), window.to(torch.float32), pad],
+                     dim=-1)
+
+
+def _is_plan(Minv) -> bool:
+    return isinstance(Minv, torch.Tensor) and Minv.shape[-1:] == (PLAN_SIZE,)
+
+
+def _plan_parts(plan: torch.Tensor):
+    """(Minv (3, 4) numpy, window) of a plan, for the plain version."""
+    p = plan.detach().cpu().numpy().astype(np.float32)
+    return (np.ascontiguousarray(p[12:24].reshape(3, 4)),
+            tuple(int(w) for w in p[27:30]))
 
 
 # ---------------------------------------------------------------------------
@@ -216,8 +280,12 @@ def pull_plain(vol: torch.Tensor, M, out_dim, order: int = 1,
 def push_plain(vals: torch.Tensor, M, vol_dim, order: int = 1, Minv=None,
                window=None, fov=None) -> torch.Tensor:
     """Plain PyTorch push, the gather form of pull^T
-    (``unires_tpu.ops.resample._push_gather``)."""
+    (``unires_tpu.ops.resample._push_gather``). ``Minv`` may be a
+    :func:`push_plan`: its inverse map and its window are taken."""
     M = _as_map(M)
+    if _is_plan(Minv):
+        Minv, plan_window = _plan_parts(Minv)
+        window = plan_window if window is None else window
     Minv = inverse_map(M) if Minv is None else _as_map(Minv)
     window = push_window(M) if window is None else _check_window(window)
     fov = _as_fov(fov)
@@ -302,6 +370,54 @@ def pull_grad_plain(vol: torch.Tensor, M, out_dim) -> torch.Tensor:
 # Public wrappers: plain version on the CPU, CUDA kernel on the card
 # ---------------------------------------------------------------------------
 
+class KernelCount:
+    """The launches of one kernel, counted by the kernel itself: thread 0
+    of its first block adds one to a (launches, FOV = true launches) pair of
+    64-bit device counters, one pair per device. A replay of a captured
+    graph therefore counts what it launches, and a launch that a graph's
+    conditional node skips counts nothing. Reading a count waits for the
+    device; setting one zeroes the device counters."""
+
+    def __init__(self):
+        self._dev = {}  # device index -> int64 tensor (2,)
+        self._base = [0, 0]
+
+    def ptr(self, device: torch.device) -> int:
+        t = self._dev.get(device.index)
+        if t is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a kernel's first launch on a device must "
+                                   "come before any graph capture")
+            t = torch.zeros(2, dtype=torch.int64, device=device)
+            self._dev[device.index] = t
+        return t.data_ptr()
+
+    def read(self, i: int) -> int:
+        return self._base[i] + sum(int(t[i]) for t in self._dev.values())
+
+    def set(self, i: int, value: int) -> None:
+        for t in self._dev.values():
+            t[i].zero_()
+        self._base[i] = int(value)
+
+
+class _Counted:
+    """A kernel wrapper; ``launches`` / ``fov_launches`` read and set its
+    :class:`KernelCount`."""
+
+    def __init__(self, fn):
+        functools.update_wrapper(self, fn)
+        self.count = KernelCount()
+
+    def __call__(self, *args, **kw):
+        return self.__wrapped__(*args, **kw)
+
+    launches = property(lambda self: self.count.read(0),
+                        lambda self, v: self.count.set(0, v))
+    fov_launches = property(lambda self: self.count.read(1),
+                            lambda self, v: self.count.set(1, v))
+
+
 def _on_cpu(t: torch.Tensor, name: str) -> bool:
     """True for a CPU tensor; checks a CUDA tensor for the kernel; raises
     for any other device."""
@@ -343,35 +459,63 @@ def _fov_ptr(fov):
     return None if fov is None else fov.ctypes.data
 
 
+def _stage(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` through pinned memory, without waiting."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a host map cannot enter a captured graph: pass "
+                           "the map as a device tensor")
+    return torch.from_numpy(np.ascontiguousarray(host)).pin_memory().to(
+        device, non_blocking=True)
+
+
+def _device_buffer(t, numel: int, device: torch.device, name: str):
+    """``t`` as the kernel reads it: float32, contiguous, 16-byte aligned,
+    ``numel`` values on ``device``; else raises."""
+    if (t.device != device or t.dtype != torch.float32
+            or t.numel() != numel or not t.is_contiguous()
+            or t.data_ptr() % 16):
+        raise ValueError(f"{name}: a device map must be a contiguous, "
+                         f"16-byte aligned float32 tensor of {numel} values "
+                         f"on {device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    return t
+
+
+def _device_map(M, device: torch.device, name: str) -> torch.Tensor:
+    """The (3, 4) map in device memory: a CUDA tensor as it is, a host map
+    staged."""
+    if isinstance(M, torch.Tensor) and M.device.type == "cuda":
+        return _device_buffer(M, 12, device, name)
+    return _stage(_as_map(M), device)
+
+
 def pull(vol: torch.Tensor, M, out_dim, order: int = 1,
          fov=None) -> torch.Tensor:
     """Sample ``vol`` at g = M @ (i,j,k,1) for every output voxel.
 
     Zero bound, no extrapolation; ``order`` 0 (nearest) or 1 (trilinear).
-    ``M`` is the (3, 4) map from output voxel to input voxel (host array).
-    ``fov`` (3, 2), optional, overrides the no-extrapolation bounds.
+    ``M`` is the (3, 4) map from output voxel to input voxel (a host array,
+    or a tensor on the volume's device). ``fov`` (3, 2), optional, overrides
+    the no-extrapolation bounds.
     """
     order = _check_order(order)
     out_dim = tuple(int(d) for d in out_dim)
     if _on_cpu(vol, "pull"):
         return pull_plain(vol, M, out_dim, order, fov)
-    M = _as_map(M)
+    Md = _device_map(M, vol.device, "pull")
     fov = _as_fov(fov)
     _check_size(vol.shape, out_dim)
     out = torch.empty(out_dim, dtype=torch.float32, device=vol.device)
     with torch.cuda.device(vol.device):
         err = kernels.get().unires_pull(
-            vol.data_ptr(), out.data_ptr(), M.ctypes.data, _fov_ptr(fov),
-            *vol.shape, *out_dim, order,
+            vol.data_ptr(), out.data_ptr(), Md.data_ptr(), _fov_ptr(fov),
+            *vol.shape, *out_dim, order, pull.count.ptr(vol.device),
             torch.cuda.current_stream().cuda_stream)
     check(err, "pull")
-    pull.launches += 1
-    if fov is not None:
-        pull.fov_launches += 1
     return out
 
 
-pull.launches = pull.fov_launches = 0
+pull = _Counted(pull)
 
 
 def push(vals: torch.Tensor, M, vol_dim, order: int = 1, Minv=None,
@@ -379,37 +523,46 @@ def push(vals: torch.Tensor, M, vol_dim, order: int = 1, Minv=None,
     """Exact adjoint of :func:`pull` (gather form, no atomics).
 
     ``M`` is the SAME (3, 4) map given to pull (source voxel -> target
-    voxel), and ``fov`` the same bounds. ``Minv`` (its inverse) is derived
-    from ``M`` on the host when not given, and so is the candidate window
-    (:func:`push_window`) unless ``window`` names its three half-widths (a
-    window smaller than the footprint drops mass, as the JAX package's); the
-    reach (:func:`push_reach`) always is, once per map (:func:`_push_plan`).
+    voxel), and ``fov`` the same bounds. ``Minv`` is its inverse, or the
+    maps' :func:`push_plan`; when not given it is derived from ``M`` (in
+    float64). The candidate window is :func:`push_window`'s unless
+    ``window`` names its three half-widths (a window smaller than the
+    footprint drops mass, as the JAX package's). On the card the kernel
+    reads M, Minv, the reach and the window from the plan: given, computed
+    on the device for device maps (:func:`push_plan`), or on the host for
+    host maps (cached per map, :func:`_push_plan`) and staged.
     """
     order = _check_order(order)
     vol_dim = tuple(int(d) for d in vol_dim)
     if _on_cpu(vals, "push"):
         return push_plain(vals, M, vol_dim, order, Minv, window, fov)
-    M = _as_map(M)
+    dev = vals.device
+    if _is_plan(Minv):
+        plan = _device_buffer(Minv, PLAN_SIZE, dev, "push")
+    elif isinstance(M, torch.Tensor) and M.device.type == "cuda":
+        plan = push_plan(_device_buffer(M, 12, dev, "push"),
+                         None if Minv is None
+                         else _device_map(Minv, dev, "push"),
+                         order, tuple(vals.shape), vol_dim)
+    else:
+        plan = _stage(_push_plan(
+            _as_map(M).tobytes(),
+            None if Minv is None else _as_map(Minv).tobytes(), order,
+            tuple(vals.shape), vol_dim), dev)
+    window = (-1, -1, -1) if window is None else _check_window(window)
     fov = _as_fov(fov)
-    Minv, plan_window, reach = _push_plan(
-        M.tobytes(), None if Minv is None else _as_map(Minv).tobytes(), order,
-        tuple(vals.shape), vol_dim)
-    window = plan_window if window is None else _check_window(window)
     _check_size(vals.shape, vol_dim)
-    out = torch.empty(vol_dim, dtype=torch.float32, device=vals.device)
-    with torch.cuda.device(vals.device):
+    out = torch.empty(vol_dim, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         err = kernels.get().unires_push(
-            vals.data_ptr(), out.data_ptr(), M.ctypes.data, Minv.ctypes.data,
-            reach.ctypes.data, _fov_ptr(fov), *vals.shape, *vol_dim, *window,
-            order, torch.cuda.current_stream().cuda_stream)
+            vals.data_ptr(), out.data_ptr(), plan.data_ptr(), _fov_ptr(fov),
+            *vals.shape, *vol_dim, *window, order, push.count.ptr(dev),
+            torch.cuda.current_stream().cuda_stream)
     check(err, "push")
-    push.launches += 1
-    if fov is not None:
-        push.fov_launches += 1
     return out
 
 
-push.launches = push.fov_launches = 0
+push = _Counted(push)
 
 
 def pull_grad(vol: torch.Tensor, M, out_dim) -> torch.Tensor:
@@ -419,16 +572,16 @@ def pull_grad(vol: torch.Tensor, M, out_dim) -> torch.Tensor:
     out_dim = tuple(int(d) for d in out_dim)
     if _on_cpu(vol, "pull_grad"):
         return pull_grad_plain(vol, M, out_dim)
-    M = _as_map(M)
+    Md = _device_map(M, vol.device, "pull_grad")
     _check_size(vol.shape, out_dim + (3,))
     out = torch.empty(out_dim + (3,), dtype=torch.float32, device=vol.device)
     with torch.cuda.device(vol.device):
         err = kernels.get().unires_pull_grad(
-            vol.data_ptr(), out.data_ptr(), M.ctypes.data, *vol.shape,
-            *out_dim, torch.cuda.current_stream().cuda_stream)
+            vol.data_ptr(), out.data_ptr(), Md.data_ptr(), *vol.shape,
+            *out_dim, pull_grad.count.ptr(vol.device),
+            torch.cuda.current_stream().cuda_stream)
     check(err, "pull_grad")
-    pull_grad.launches += 1
     return out
 
 
-pull_grad.launches = 0
+pull_grad = _Counted(pull_grad)

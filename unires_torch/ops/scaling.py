@@ -10,13 +10,20 @@ import torch
 
 
 def apply_scaling(dat: torch.Tensor, scl, axis: int) -> torch.Tensor:
-    """Multiply even-index slices along ``axis`` by exp(scl), odd by exp(-scl)."""
+    """Multiply even-index slices along ``axis`` by exp(scl), odd by exp(-scl).
+
+    ``scl`` is a number or a 0-d tensor on the data's device (the fit
+    chunk's, read by no host); either is rounded to the data's dtype before
+    the product, as a Python number is.
+    """
     n = dat.shape[axis]
     idx = torch.arange(n, device=dat.device)
     sgn = torch.where(idx % 2 == 0, 1.0, -1.0).to(dat.dtype)
     shape = [1] * dat.dim()
     shape[axis] = n
-    return dat * torch.exp(float(scl) * sgn.reshape(shape))
+    if not isinstance(scl, torch.Tensor):
+        scl = float(scl)
+    return dat * torch.exp(scl * sgn.reshape(shape))
 
 
 def _parity(dat: torch.Tensor, axis: int, start: int) -> torch.Tensor:

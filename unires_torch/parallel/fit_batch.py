@@ -10,13 +10,15 @@ tests/test_torch_batch.py pins equality against the single fit).
 
 The JAX package compiles one program for a geometry-homogeneous batch and
 maps it over a device mesh, with its Pallas window plans sized for every
-subject. Eager PyTorch has no such program: here subject b goes to device
-``b % g`` (:func:`assign_devices`), and each device's subjects are fitted
-round-robin, one outer iteration of each live subject in turn, through the
-stepper that ``pipeline.fit.fit`` uses (``pipeline.fit.FitRun``), so that
-one subject's host work overlaps another's queued kernels. With more than
-one device, one host thread drives each. The batch must still be
-homogeneous (:func:`check_homogeneous`), as in the JAX package.
+subject. Here subject b goes to device ``b % g`` (:func:`assign_devices`),
+and each device's subjects are fitted round-robin through the stepper that
+``pipeline.fit.fit`` uses (``pipeline.fit.FitRun``): a chunk of
+``chunk_iters`` outer iterations of every live subject is enqueued (on the
+card, replays of each subject's captured graph) before any subject's chunk
+is read, so that the card runs one subject's chunk while the host reads or
+enqueues another's. With more than one device, one host thread drives each.
+The batch must still be homogeneous (:func:`check_homogeneous`), as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -142,16 +144,19 @@ def fit_batch(xs, ys, sett, devices=None):
     lock = threading.Lock()
 
     def drive(mine):
-        """Round-robin over one device's subjects until none is live."""
+        """Chunks of one device's subjects, every live subject's enqueued
+        before any is read, until none is live."""
         while any(r.live for r in mine):
-            for r in mine:
-                if r.live:
-                    r.step()
+            live = [r for r in mine if r.live]
+            for r in live:
+                r.launch()
+            for r in live:
+                r.collect()
             if sett.do_print >= 1:
                 t0 = runs[0].obj_trace
                 with lock:
                     print(f"batch-fit: iter<= "
-                          f"{max(r.state.n_iter for r in runs)} done "
+                          f"{max(r.n_iter for r in runs)} done "
                           f"{sum(not r.live for r in runs)}/{B} obj0 "
                           f"{t0[-1][0] if t0 else float('nan'):.6g}",
                           flush=True)

@@ -18,7 +18,7 @@ import torch
 
 from ..models.proj_op import ProjOp
 from ..settings import Settings
-from ..solvers.fitloop import FitState
+from ..solvers.fitloop import FitState, init_state
 from .fit import _sync_state
 from .structs import Chan, Obs
 
@@ -51,20 +51,31 @@ def convert_proj_op(po) -> ProjOp:
                      for f in dataclasses.fields(ProjOp)})
 
 
-def convert_fit_state(st, device) -> FitState:
+def convert_fit_state(st, x, y, sett) -> FitState:
     """A JAX ``solvers.fitloop.FitState`` (the loop state between two of its
-    chunks) -> the port's ``FitState``: volumes to ``device``, poses and
-    scales to host float64, counters and flags to Python scalars."""
-    return FitState(
-        ys=to_tensor(st.ys, device), z=to_tensor(st.z, device),
-        w=to_tensor(st.w, device), jtv=to_tensor(st.jtv, device),
-        q=np.array(st.q, np.float64), scl=np.array(st.scl, np.float64),
-        cdiags=to_tensor(st.cdiags, device),
-        cnt_scl=int(st.cnt_scl), cnt_scl_iter=int(st.cnt_scl_iter),
-        countdown0=int(st.countdown0), countdown1=int(st.countdown1),
-        n_iter=int(st.n_iter), done=bool(st.done),
-        prev_obj=float(st.prev_obj), obj_max=float(st.obj_max),
-        obj_min=float(st.obj_min), has_prev=bool(st.has_prev))
+    chunks) -> the port's ``FitState`` on ``sett.device`` for the port's
+    structs ``x`` / ``y``, which take its poses, scales and volumes. Its CG
+    diagonals are kept (the port refreshes them on its own cadence)."""
+    i = 0
+    for xc in x:
+        for o in xc:
+            o.rigid_q = np.array(st.q[i], np.float64)
+            o.po.scl = float(st.scl[i])
+            i += 1
+    ys = np.asarray(st.ys, np.float32)
+    for c, yc in enumerate(y):
+        yc.dat = to_tensor(ys[c], sett.device)
+    out = init_state(
+        x, y, sett, z=to_tensor(st.z, sett.device),
+        w=to_tensor(st.w, sett.device), cnt_scl=int(st.cnt_scl),
+        cnt_scl_iter=int(st.cnt_scl_iter), countdown0=int(st.countdown0),
+        countdown1=int(st.countdown1), n_iter=int(st.n_iter),
+        done=bool(st.done), prev_obj=float(st.prev_obj),
+        obj_max=float(st.obj_max), obj_min=float(st.obj_min),
+        has_prev=bool(st.has_prev), has_cdiags=True)
+    out.jtv.copy_(to_tensor(st.jtv, sett.device))
+    out.cdiags.copy_(to_tensor(st.cdiags, sett.device))
+    return out
 
 
 def convert_state(x, y, sett, device="cpu", z=None, w=None, state=None):
@@ -99,7 +110,7 @@ def convert_state(x, y, sett, device="cpu", z=None, w=None, state=None):
     sett_t = convert_settings(sett, device)
     out = (x_t, y_t, sett_t)
     if state is not None:
-        st = convert_fit_state(state, device)
+        st = convert_fit_state(state, x_t, y_t, sett_t)
         _sync_state(x_t, y_t, sett_t, st)
         return out + (st,)
     if z is not None or w is not None:

@@ -1,15 +1,20 @@
-"""Fit orchestrator: the host-driven outer loop.
+"""Fit orchestrator: chunks of outer iterations on the device.
 
 Mirrors ``unires_tpu.pipeline.fit`` (reference ``fit``, unires/run.py:24-207):
 lambda schedule with countdowns, gain-based convergence, optional even/odd
 scaling and unified rigid updates, FOV cleaning and rigid-matrix collection.
-One outer iteration per step (``solvers.fitloop.make_fit_iteration``),
-held by a per-subject stepper (:class:`FitRun`) that ``parallel.fit_batch``
-shares. Around the loop: checkpoint / resume (``pipeline.checkpoint``), a
-``torch.profiler`` trace (``Settings.profile_dir``) and the matplotlib
-dashboards (``utils.plots``). The JAX package's window re-plans have no
-counterpart: the CUDA kernels take any affine, so a drifted pose never needs
-another program.
+The iterations run in chunks of ``Settings.chunk_iters``
+(``solvers.fitloop.make_fit_chunk``: on the card, replays of a captured
+CUDA graph), and the host reads each chunk once, as the JAX loop does
+(``unires_tpu/pipeline/fit.py:209-235``); a chunk is cut short so that a
+checkpoint lands every ``checkpoint_every`` iterations. A per-subject
+stepper (:class:`FitRun`) holds the chunk; ``parallel.fit_batch`` enqueues
+every subject's chunk before it reads any. Around the loop: checkpoint /
+resume (``pipeline.checkpoint``), a ``torch.profiler`` trace
+(``Settings.profile_dir``) and the matplotlib dashboards (``utils.plots``),
+at chunk cadence. The JAX package's window re-plans have no counterpart:
+the CUDA kernels take any affine, so a drifted pose never needs another
+program.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import torch
 from ..geometry import fov_centre, rigid_from_q
 from ..ops.resample import affine_to_M, pull
 from ..solvers.admm import step_size
-from ..solvers.fitloop import FitState, init_state, make_fit_iteration
+from ..solvers.fitloop import FitState, init_state, make_fit_chunk
 from ..utils.log import info
 from ..utils.plots import plot_convergence, require_matplotlib, show_slices
 from .checkpoint import load_checkpoint, restore_into, save_checkpoint
@@ -94,41 +99,54 @@ def _gather_subdats(x, subs):
 
 def _sync_state(x, y, sett, state: FitState) -> None:
     """Write the loop state back into the pipeline structs: q -> rigid_q and
-    the centre-conjugated po.rigid, scl -> po.scl, ys -> y, lam."""
+    the centre-conjugated po.rigid, scl -> po.scl (the host's copies, as
+    last read), ys -> y (device views), lam."""
     basis = sett.rigid_basis
     centre = fov_centre(y[0].mat, y[0].dim)
     i = 0
     for xc in x:
         for o in xc:
-            o.rigid_q = np.array(state.q[i], np.float64)
+            o.rigid_q = np.array(state.host["q"][i], np.float64)
             if basis is not None:
                 o.po.rigid = rigid_from_q(o.rigid_q, basis, centre)
-            o.po.scl = float(state.scl[i])
+            o.po.scl = float(state.host["scl"][i])
             i += 1
     reg = np.atleast_1d(np.asarray(sett.reg_scl, np.float64))
+    cnt = state.host["cnt_scl"]
     for c in range(len(y)):
         y[c].dat = state.ys[c]
-        y[c].lam = float(reg[min(state.cnt_scl, reg.size - 1)]) * y[c].lam0
+        y[c].lam = float(reg[min(cnt, reg.size - 1)]) * y[c].lam0
+
+
+def chunk_len(sett) -> int:
+    """Iterations per chunk: ``chunk_iters``, at most ``max_iter``."""
+    return max(1, min(int(getattr(sett, "chunk_iters", 16)),
+                      int(sett.max_iter)))
 
 
 class FitRun:
-    """One subject's fit as a stepper: ``step()`` runs one outer iteration
-    and appends its objective to ``obj_trace``; ``finish()`` writes the loop
-    state back into the structs and returns what ``fit`` returns.
+    """One subject's fit as a stepper over chunks: ``launch(n)`` enqueues
+    up to n outer iterations (at most ``chunk_iters``) and ``collect()``
+    reads them back once, appending their objectives to ``obj_trace``;
+    ``step()`` does both; ``finish()`` writes the loop state back into the
+    structs and returns what ``fit`` returns.
 
     ``fit`` drives one of these to the end; ``parallel.fit_batch`` holds one
-    per subject and steps them in turn. Each owns its iteration closure
-    (``solvers.fitloop.make_fit_iteration`` caches per-observation tensors on
-    the subject's device), so no two subjects share one.
+    per subject and launches every subject's chunk before it collects any.
+    Each owns its chunk (``solvers.fitloop.make_fit_chunk``: on the card, a
+    captured graph bound to this subject's state), so no two subjects share
+    one. ``capture`` is the chunk's (tests and ``chip_smoke.py`` pass False
+    to run the card uncaptured).
     """
 
     def __init__(self, x: XData, y: YData, sett, state: FitState = None,
-                 obj_trace=None):
+                 obj_trace=None, capture=None):
         self.x, self.y = x, y
         self.N = sum(len(xc) for xc in x)
         self.sett = sett = get_sched(self.N, sett)
         self.obj_trace = list(obj_trace) if obj_trace is not None else []
         self.state = None
+        self.pending = 0
         if state is None:
             # schedule position 0
             reg = np.atleast_1d(np.asarray(sett.reg_scl, np.float64))
@@ -137,22 +155,43 @@ class FitRun:
         if sett.max_iter > 0:
             info(sett, "step-size", step_size(x, y, sett))
             self.state = state if state is not None else init_state(x, y, sett)
-            self.iterate = make_fit_iteration(x, y, sett)
+            self.chunk = make_fit_chunk(x, y, sett, chunk_len(sett), capture)
             self.xdats = [[o.dat for o in xc] for xc in x]
-            self.subdats = _gather_subdats(x, self.iterate.subs)
+            self.subdats = _gather_subdats(x, self.chunk.subs)
+
+    @property
+    def n_iter(self) -> int:
+        """Outer iterations done, as last read."""
+        return self.state.host["n_iter"]
 
     @property
     def live(self) -> bool:
         st = self.state
-        return (st is not None and not st.done
-                and st.n_iter < self.sett.max_iter)
+        return (st is not None and not st.host["done"]
+                and st.host["n_iter"] < self.sett.max_iter)
 
-    def step(self):
-        """One outer iteration; returns (obj (3,), gain)."""
-        self.state, obj, gain = self.iterate(self.state, self.xdats,
-                                             self.subdats)
-        self.obj_trace.append(obj)
-        return obj, gain
+    def launch(self, n: int = None) -> None:
+        """Enqueue the next chunk: ``n`` iterations (default and at most
+        ``chunk_iters``, at most what ``max_iter`` leaves)."""
+        n = self.chunk.K if n is None else min(int(n), self.chunk.K)
+        n = min(n, self.sett.max_iter - self.n_iter)
+        self.pending = n
+        self.chunk(self.state, self.xdats, self.subdats, n)
+
+    def collect(self):
+        """Read the launched chunk (one read); returns its live iterations'
+        (obj (3,), gain) rows, also appended to ``obj_trace``."""
+        out = self.chunk.read(self.state, self.pending)
+        self.pending = 0
+        rows = [(out["objs"][k], float(out["gains"][k]))
+                for k in np.flatnonzero(out["valid"])]
+        self.obj_trace.extend(obj for obj, _ in rows)
+        return rows
+
+    def step(self, n: int = None):
+        """One chunk, launched and read; returns its rows (:meth:`collect`)."""
+        self.launch(n)
+        return self.collect()
 
     def sync(self) -> None:
         _sync_state(self.x, self.y, self.sett, self.state)
@@ -184,35 +223,33 @@ def _resume_state(x, y, sett):
     and scales of the file in a fresh loop state, the counters as saved
     (``n_iter`` is stored as iterations done - 1), and the gain's running
     values rebuilt from the saved trace. The saved rho is not read back
-    (the step size follows from the restored lam), and ``cdiags`` stays
-    None: the first iteration recomputes the preconditioner's data-term
-    diagonals from the restored poses."""
+    (the step size follows from the restored lam), and the CG
+    preconditioner's data-term diagonals are recomputed from the restored
+    poses at the first iteration."""
     z, w, st = restore_into(load_checkpoint(sett.checkpoint_path), x, y,
                             torch.device(sett.device))
-    state = init_state(x, y, sett)
-    state.z, state.w = z, w
     tr = np.asarray(st["obj_trace"], np.float64).reshape(-1, 3)
-    state.cnt_scl = st["cnt_scl"]
-    state.cnt_scl_iter = st["cnt_scl_iter"]
-    state.countdown0 = st["countdown0"]
-    state.countdown1 = st["countdown1"]
-    state.n_iter = st["n_iter"] + 1
+    counters = {k: st[k] for k in ("cnt_scl", "cnt_scl_iter", "countdown0",
+                                   "countdown1")}
     if tr.size:
-        state.prev_obj = float(tr[-1, 0])
-        state.obj_max = float(tr[:, 0].max())
-        state.obj_min = float(tr[:, 0].min())
-        state.has_prev = True
+        counters.update(prev_obj=float(tr[-1, 0]),
+                        obj_max=float(tr[:, 0].max()),
+                        obj_min=float(tr[:, 0].min()), has_prev=True)
+    state = init_state(x, y, sett, z=z, w=w, n_iter=st["n_iter"] + 1,
+                       **counters)
     return state, st["obj_trace"]
 
 
 def _save_state(run: FitRun) -> None:
     run.sync()  # y[c].lam at the current schedule position, q, scl, ys
-    st, sett = run.state, run.sett
-    save_checkpoint(sett.checkpoint_path, run.x, run.y, st.z, st.w, dict(
-        rho=step_size(run.x, run.y, sett), cnt_scl=st.cnt_scl,
-        cnt_scl_iter=st.cnt_scl_iter, n_iter=st.n_iter - 1,
-        countdown0=st.countdown0, countdown1=st.countdown1,
-        obj_trace=np.asarray(run.obj_trace)))
+    h, sett = run.state.host, run.sett
+    save_checkpoint(sett.checkpoint_path, run.x, run.y, run.state.z,
+                    run.state.w, dict(
+                        rho=step_size(run.x, run.y, sett),
+                        cnt_scl=h["cnt_scl"], cnt_scl_iter=h["cnt_scl_iter"],
+                        n_iter=h["n_iter"] - 1, countdown0=h["countdown0"],
+                        countdown1=h["countdown1"],
+                        obj_trace=np.asarray(run.obj_trace)))
 
 
 @contextlib.contextmanager
@@ -245,13 +282,13 @@ def profile_trace(sett):
 
 
 def _dashboards(run: FitRun) -> None:
-    """The optional figures, once per outer iteration (the JAX loop draws
-    them once per chunk): the per-channel slices of verbosity 3, the
-    convergence plot and the JTV field (reference run.py:90-99)."""
+    """The optional figures, once per chunk (as the JAX loop): the
+    per-channel slices of verbosity 3, the convergence plot and the JTV
+    field (reference run.py:90-99)."""
     sett, st = run.sett, run.state
     if sett.do_print >= 3:
         for c in range(len(run.y)):
-            show_slices(st.ys[c], title=f"y (channel {c}) @ iter {st.n_iter}",
+            show_slices(st.ys[c], title=f"y (channel {c}) @ iter {run.n_iter}",
                         fig_num=60 + c)
     if sett.plot_conv:
         plot_convergence(np.asarray(run.obj_trace))
@@ -259,49 +296,56 @@ def _dashboards(run: FitRun) -> None:
         show_slices(st.jtv, title="JTV", fig_num=98, cmap="coolwarm")
 
 
-def fit(x: XData, y: YData, sett, state: FitState = None):
+def fit(x: XData, y: YData, sett, state: FitState = None, capture=None):
     """Run the iterative solver; returns (y, R, jtv, obj_trace, n_iter).
 
     Output writing is the caller's job (``pipeline.run.fit``). ``state``
     continues a fit from a given loop state (``pipeline.convert``) instead
-    of a fresh one.
+    of a fresh one. ``capture``: as :class:`FitRun`'s (default: a captured
+    graph on a CUDA device).
 
     With ``checkpoint_every`` > 0 and a ``checkpoint_path`` the solver state
-    is saved after every ``checkpoint_every``-th iteration of this call (the
-    JAX loop looks once per chunk of ``chunk_iters`` iterations, so it saves
-    at the first chunk end at least that far on). With ``resume`` and an
-    existing file the fit continues from it, and the returned trace and
-    ``n_iter`` count the iterations before the checkpoint too; without the
-    file it starts fresh.
+    is saved after every ``checkpoint_every``-th iteration of this call (a
+    chunk is cut short to land there). With ``resume`` and an existing file
+    the fit continues from it, and the returned trace and ``n_iter`` count
+    the iterations before the checkpoint too; without the file it starts
+    fresh.
     """
     prior = None
     if (state is None and sett.max_iter > 0 and sett.resume
             and sett.checkpoint_path
             and os.path.exists(sett.checkpoint_path)):
         state, prior = _resume_state(x, y, sett)
-    run = FitRun(x, y, sett, state, prior)
+    run = FitRun(x, y, sett, state, prior, capture)
     sett = run.sett
     if run.state is not None:
         require_matplotlib(sett)
         t00 = info(sett, "fit-start", len(x), run.N)
-        last_ckpt = run.state.n_iter
+        last_ckpt = run.n_iter
+        every = sett.checkpoint_every if sett.checkpoint_path else 0
         with profile_trace(sett):
             while run.live:
-                t_it = timer()
-                obj, gain = run.step()
-                n_done = run.state.n_iter
-                info(sett, "fit-ll", n_done - 1, obj, gain, t_it)
-                if sett.do_print >= 2:  # reference verbosity 2 (_util.py:107-129)
+                t_chunk = timer()
+                n = run.chunk.K
+                if every > 0:
+                    n = min(n, every - (run.n_iter - last_ckpt))
+                rows = run.step(n)
+                t_now = timer()
+                per_iter = (t_now - t_chunk) / max(len(rows), 1)
+                base = run.n_iter - len(rows)
+                for k, (obj, gain) in enumerate(rows):
+                    info(sett, "fit-ll", base + k, obj, gain, t_now - per_iter)
+                if rows and sett.do_print >= 2:
+                    # reference verbosity 2 (_util.py:107-129)
                     run.sync()
                     info(sett, "reg-param", x)
                     info(sett, "scl-param", x)
-                if sett.do_print >= 3:
-                    info(sett, "fit-done", t_it)
+                if rows and sett.do_print >= 3:
+                    info(sett, "fit-done", t_chunk)
                 _dashboards(run)
-                if (sett.checkpoint_every > 0 and sett.checkpoint_path
-                        and n_done - last_ckpt >= sett.checkpoint_every):
+                if every > 0 and run.n_iter - last_ckpt >= every:
                     _save_state(run)
-                    last_ckpt = n_done
-        if run.state.done:
-            info(sett, "fit-finish", t00, run.state.n_iter - 1)
+                    last_ckpt = run.n_iter
+        if run.state.host["done"]:
+            info(sett, "fit-finish", t00, run.n_iter - 1)
     return run.finish()

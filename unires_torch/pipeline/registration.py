@@ -13,12 +13,17 @@ fused pyramid program, window plans, batched levels, AOT cache):
   grid (the movers onto their union FOV box), and coarser levels are
   smooth + stride decimations of it;
 * the joint histogram uses soft (linear) binning, 64 bins, accumulated in
-  chunks of 65,536 voxels as (64, chunk) x (chunk, 64) products, so the NMI
-  -(H_f + H_m) / H_joint is differentiable in the moved image;
-* its gradient in the group's parameters has two halves: the histogram half by
-  ``torch.autograd`` (d NMI / d moved intensities), and the resampler half
-  from the pull_grad kernel contracted to order-<=1 spatial moments (the map
-  is affine in the voxel coordinate, as in ``solvers.rigid``);
+  chunks of 65,536 voxels as (64, chunk) x (chunk, 64) products without
+  autograd, each chunk's bin weights made afresh and dropped, so that a
+  level holds no more than one chunk's weights (the JAX optimiser's
+  chunked accumulation, ``unires_tpu/pipeline/registration.py:340-421``);
+* its gradient in the group's parameters has two halves: the histogram half,
+  d NMI / d joint by ``torch.autograd`` through the small entropy expression
+  alone, then each chunk's cotangent d NMI / d moved intensities from it,
+  the chunk's fixed weights and the derivative of its moving weights; and
+  the resampler half from the pull_grad kernel contracted to order-<=1
+  spatial moments (the map is affine in the voxel coordinate, as in
+  ``solvers.rigid``);
 * each level runs an adaptive-step preconditioned descent: step 100, x1.4
   on accept, x0.5 on reject, at most 150 evaluations, stopping at step
   <= 1e-7 or after 12 evaluations without progress. Each evaluation reads
@@ -175,12 +180,25 @@ def _normalise(v: torch.Tensor, vmin, vmax) -> torch.Tensor:
     return (v - vmin) / torch.clamp(vmax - vmin, min=1e-12) * (_BINS - 1)
 
 
+def _nmi_of_joint(joint: torch.Tensor) -> torch.Tensor:
+    """-(H_f + H_m) / H_joint of an unnormalised (bins, bins) histogram."""
+    joint = joint / torch.clamp(joint.sum(), min=1e-12)
+    pf, pm = joint.sum(dim=1), joint.sum(dim=0)
+    eps = 1e-12
+    hf = -torch.sum(pf * torch.log(pf + eps))
+    hm = -torch.sum(pm * torch.log(pm + eps))
+    hj = -torch.sum(joint * torch.log(joint + eps))
+    return -(hf + hm) / torch.clamp(hj, min=eps)
+
+
 class _NMILevel:
     """Loss and gradient of one level's NMI in the parameters of ``group``
     (six for SE(3), seven for CSO).
 
-    The fixed image's bin weights do not depend on the pose: they are built
-    once per level, one (64, 65536) block per chunk.
+    The histogram and its gradient are taken chunk by chunk: a chunk's
+    fixed and moving bin weights ((64, 65536) each) exist only while that
+    chunk is summed, so the level's memory is its volumes plus one chunk's
+    weights, whatever its size.
     """
 
     def __init__(self, fix, mov, pre4, post4, group: str = "SE"):
@@ -188,39 +206,45 @@ class _NMILevel:
         self.mov = mov
         self.pre4, self.post4 = pre4, post4
         self.basis = affine_basis(group)
-        fn = _normalise(fix.reshape(-1), fix.min(), fix.max())
-        self.Wf = [_soft_weights(c) for c in torch.split(fn, _CHUNK)]
+        self.fn = torch.split(_normalise(fix.reshape(-1), fix.min(),
+                                         fix.max()), _CHUNK)
         self.mmin, self.mmax = mov.min(), mov.max()
         self.center = tuple((d - 1) / 2.0 for d in self.fix_dim)
         self.coords = _centred_coords(self.fix_dim, self.center, fix.device)
 
-    def _hist_loss(self, movf):
-        mn = _normalise(movf, self.mmin, self.mmax)
+    def _loss_cotangent(self, movf):
+        """(NMI, d NMI / d movf) of the moved intensities ``movf`` (n,)."""
+        mn = torch.split(_normalise(movf, self.mmin, self.mmax), _CHUNK)
         joint = None
-        for Wf, c in zip(self.Wf, torch.split(mn, _CHUNK)):
-            part = Wf @ _soft_weights(c).T
+        for f, m in zip(self.fn, mn):
+            part = _soft_weights(f) @ _soft_weights(m).T
             joint = part if joint is None else joint + part
-        joint = joint / torch.clamp(joint.sum(), min=1e-12)
-        pf, pm = joint.sum(dim=1), joint.sum(dim=0)
-        eps = 1e-12
-        hf = -torch.sum(pf * torch.log(pf + eps))
-        hm = -torch.sum(pm * torch.log(pm + eps))
-        hj = -torch.sum(joint * torch.log(joint + eps))
-        return -(hf + hm) / torch.clamp(hj, min=eps)
+        with torch.enable_grad():
+            J = joint.requires_grad_()
+            L = _nmi_of_joint(J)
+            gJ, = torch.autograd.grad(L, J)
+        centers = torch.arange(_BINS, dtype=torch.float32, device=movf.device)
+        scale = torch.clamp(self.mmax - self.mmin, min=1e-12)
+        ct = []
+        for f, m in zip(self.fn, mn):
+            # d soft_weights(m)[b, i] / d m_i: -sgn(m_i - b) where the
+            # weight's clamp passes (1 - |m_i - b| >= 0), else 0
+            d = m[None, :] - centers[:, None]
+            dW = torch.where(1.0 - torch.abs(d) >= 0.0, -torch.sgn(d), 0.0)
+            g_mn = ((gJ.T @ _soft_weights(f)) * dW).sum(dim=0)
+            ct.append(g_mn * (_BINS - 1) / scale)
+        return L.detach(), torch.cat(ct)
 
     def __call__(self, q):
         """(loss, gradient (K,)) at q, one read-back."""
         R, dR = dexpm(q, self.basis)
         M = compose_maps(self.pre4, R, self.post4)[0]
-        movf = pull(self.mov, M, self.fix_dim).reshape(-1).detach().requires_grad_()
-        with torch.enable_grad():
-            L = self._hist_loss(movf)
-            ct, = torch.autograd.grad(L, movf)
+        movf = pull(self.mov, M, self.fix_dim).reshape(-1)
+        L, ct = self._loss_cotangent(movf)
         pg = pull_grad(self.mov, M, self.fix_dim)
         W = ct.reshape(self.fix_dim)[None] * pg.permute(3, 0, 1, 2)
         mom = _moments(W, self.coords, order=1)  # (3, 4) float64
-        v = to_host(torch.cat([L.detach().double().reshape(1),
-                               mom.reshape(-1)]))
+        v = to_host(torch.cat([L.double().reshape(1), mom.reshape(-1)]))
         m0, m1 = v[1:].reshape(3, 4)[:, 0], v[1:].reshape(3, 4)[:, 1:]
         # dL/dq_k = sum_v ct_v pg_v . (B_k v): B_k affine in the voxel
         # coordinate, so the order-<=1 moments suffice

@@ -92,9 +92,9 @@ class Settings:
     write_jtv: bool = False  # write JTV volume
     write_out: bool = True  # write reconstructions to disk
 
-    # not in the reference: the JAX fit loop runs chunk_iters outer
-    # iterations per device call; the port keeps it as the cadence at which
-    # the CG preconditioner's data-term diagonal is recomputed
+    # not in the reference: outer iterations per device call (the fit
+    # chunk, read by the host once), and the cadence at which the CG
+    # preconditioner's data-term diagonal is recomputed
     chunk_iters: int = 16
     shard: str = ""  # multi-device sharding (not in the reference): ""
     # = off; "batch" marks a run of ``preproc_batch`` / ``--shard``: a batch

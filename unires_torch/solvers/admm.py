@@ -14,7 +14,12 @@ unires/_update.py:105-195 and :396-427), in eager PyTorch:
     counterpart of that module;
   * the joint-shrinkage z-update and the dual w-update.
 
-Scalars (tau, lam, rho) are Python floats; maps are (3, 4) host arrays.
+tau is a Python float (fixed for a fit). lam and rho are float64 tensors on
+the device (the fit chunk looks them up from the schedule position without
+reading it back) or Python numbers; either way they enter each product as a
+Python number would, rounded to float32 there. Maps are (3, 4) host arrays
+or device tensors (``ops.resample``), and ``Minvs`` may be the maps' push
+plans.
 """
 from __future__ import annotations
 
@@ -39,6 +44,17 @@ def _vx_y(y) -> tuple:
 
 def _f64_sum(v: torch.Tensor) -> torch.Tensor:
     return v.sum(dtype=torch.float64)
+
+
+def _device_scalars(lams, rho, device):
+    """(lams (C,), rho) as float64 tensors on ``device``; tensors pass as
+    they are."""
+    if not isinstance(lams, torch.Tensor):
+        lams = torch.tensor([float(v) for v in lams], dtype=torch.float64,
+                            device=device)
+    if not isinstance(rho, torch.Tensor):
+        rho = torch.tensor(float(rho), dtype=torch.float64, device=device)
+    return lams, rho
 
 
 def admm_aux(C: int, dim_y, device="cpu") -> tuple:
@@ -194,7 +210,9 @@ def make_admm_body(x, y, sett):
 
     Returns ``body(ys, z, w, xdats, Ms, Minvs, scls, taus, lams, rho, cdiags)
     -> (ys, z, w, jtv, obj)`` with obj a (3,) float64 tensor =
-    (-ln p(y|x), -ln p(x|y), -ln p(y)).
+    (-ln p(y|x), -ln p(x|y), -ln p(y)). ``lams`` (C,) and ``rho``: float64
+    device tensors or Python numbers. Nothing is read back but the CG's stop
+    test, which a captured graph reads on the device.
     """
     C = len(x)
     method = sett.method
@@ -239,9 +257,8 @@ def make_admm_body(x, y, sett):
         return P
 
     def body(ys, z, w, xdats, Ms, Minvs, scls, taus, lams, rho, cdiags):
-        lams = [float(v) for v in lams]
-        rho = float(rho)
-        lams_t = torch.tensor(lams, dtype=torch.float32, device=dev)
+        lams, rho = _device_scalars(lams, rho, dev)
+        lams_t = lams.to(torch.float32)
 
         # ---- y-update: all channels in one batched CG ----
         rhs_all = []

@@ -15,11 +15,14 @@ per-entry alpha/beta from inner products over the volume axes, entries that
 reach their stopping residual are FROZEN (alpha = 0, p and rz held) while the
 rest iterate — and the operator and preconditioner act on the whole stack.
 
-The stop test needs the device's answer on the host: ``bool(live.any())``
-costs one synchronisation per CG step. It keeps the iteration counts of the
-JAX solver exactly (running all ``max_iter`` steps with frozen channels would
+Each step of ``cg_batched`` runs under ``utils.graph.cond(live.any())``: in
+a captured graph (the fit chunk on the card) a conditional IF node whose
+predicate the device reads, so that the host reads nothing and a step after
+the stop launches nothing; elsewhere one host read per step, and the loop
+ends at the first false one. Either way the iteration counts are the JAX
+solver's exactly (running all ``max_iter`` steps with frozen channels would
 give the same iterates at up to ~5x the work, since warm-started solves stop
-after a few steps).
+after a few steps). Its iterates are updated in place inside the step.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..utils.graph import capturing, cond
 from ..utils.host import to_host
 
 
@@ -86,7 +90,8 @@ def cg_batched(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
                x0: torch.Tensor, max_iter: int = 20, tol: float = 1e-3,
                precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
                verbose: bool = False, return_iters: bool = False):
-    """Solve A x = b per leading-axis entry (SPD, matrix-free), from x0."""
+    """Solve A x = b per leading-axis entry (SPD, matrix-free), from x0.
+    ``return_iters`` also returns the steps taken, a 0-d int64 tensor."""
     if precond is None:
         precond = lambda v: v  # noqa: E731
     axes = tuple(range(1, b.dim()))
@@ -98,28 +103,33 @@ def cg_batched(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
         return s.reshape(s.shape + (1,) * (b.dim() - 1))
 
     tiny = 1e-30
-    x = x0
+    x = x0.clone()
     r = b - A(x)
-    p = precond(r)
+    p = precond(r).clone()  # updated in place: never the residual itself
     rz = dot(r, p)
     ref = (tol * tol) * torch.clamp(dot(b, precond(b)), min=tiny)
     live = torch.ones(b.shape[0], dtype=torch.bool, device=b.device)
-    it = 0
-    while it < max_iter and bool(to_host(live.any())):  # one sync per step
+    its = torch.zeros((), dtype=torch.int64, device=b.device)
+
+    def step():
         Ap = A(p)
         pAp = dot(p, Ap)
         alpha = torch.where(live, rz / torch.clamp(pAp, min=tiny), 0.0)
-        x = x + bc(alpha) * p
-        r = r - bc(alpha) * Ap
+        x.add_(bc(alpha) * p)
+        r.sub_(bc(alpha) * Ap)
         z = precond(r)
         rz_new = torch.where(live, dot(r, z), rz)
         beta = rz_new / torch.clamp(rz, min=tiny)
-        p = torch.where(bc(live), z + bc(beta) * p, p)
-        live = live & (rz_new >= ref)
-        rz = rz_new
-        if verbose:  # Settings.cgs_verbose
-            print(f"cg it={it} rz={rz.tolist()}")
-        it += 1
+        torch.where(bc(live), z + bc(beta) * p, p, out=p)
+        live.copy_(live & (rz_new >= ref))
+        rz.copy_(rz_new)
+        its.add_(1)
+        if verbose and not capturing():  # Settings.cgs_verbose
+            print(f"cg it={int(its) - 1} rz={rz.tolist()}")
+
+    for _ in range(max_iter):
+        if not cond(live.any(), step):
+            break
     if return_iters:
-        return x, it
+        return x, its
     return x

@@ -5,8 +5,10 @@ unires/_update.py:198-267 and :448-710). The chain rule avoids the
 reference's 18 dAff volumes: dAff_{i,d}(o) is affine in the voxel coordinate
 o, so every contraction sum_o W(o) dAff_{i,d1}(o) dAff_{j,d2}(o) is a
 quadratic form in the order-<=2 spatial moments of W. The device computes
-only the moments of the 3 gradient and 6 Hessian weight volumes, and the
-6x6 system is assembled on the host in float64.
+only the moments of the 3 gradient and 6 Hessian weight volumes; the 6x6
+system is assembled and solved in float64, on the host for the host API
+(:func:`update_rigid`) and on the device for the fit chunk
+(:func:`_assemble` takes either; :func:`gn_delta` solves on the device).
 
 The moments are reduced in float64 through the three 2D marginals of each
 weight volume (``sum_k W``, ``sum_j W``, ``sum_i W``), which give every
@@ -47,53 +49,96 @@ def _moments(W: torch.Tensor, coords, order: int = 2) -> torch.Tensor:
 
     Returns a float64 tensor (..., 10) = (m0, m1[3], m2[6]) with m1 =
     (sum W i, sum W j, sum W k) and m2 = (ii, jj, kk, ij, ik, jk), or
-    (..., 4) = (m0, m1[3]) for ``order=1``.
+    (..., 4) = (m0, m1[3]) for ``order=1``. The products with the
+    coordinates are elementwise sums, not matrix-vector products: the fit
+    chunk takes them inside a graph's conditional nodes, which the library
+    kernels of a matrix-vector product do not enter.
     """
     ii, jj, kk = coords
+
+    def dot(P, c):  # contract the last axis of P with c
+        return (P * c).sum(dim=-1)
+
     Pxy = W.sum(dim=-1, dtype=torch.float64)  # (..., X, Y)
     Px = Pxy.sum(dim=-1)
     Py = Pxy.sum(dim=-2)
     Pxz = W.sum(dim=-2, dtype=torch.float64)  # (..., X, Z)
     Pz = Pxz.sum(dim=-2)
-    out = [Px.sum(dim=-1), Px @ ii, Py @ jj, Pz @ kk]
+    out = [Px.sum(dim=-1), dot(Px, ii), dot(Py, jj), dot(Pz, kk)]
     if order == 2:
         Pyz = W.sum(dim=-3, dtype=torch.float64)  # (..., Y, Z)
-        out += [Px @ (ii * ii), Py @ (jj * jj), Pz @ (kk * kk),
-                (Pxy @ jj) @ ii, (Pxz @ kk) @ ii, (Pyz @ kk) @ jj]
+        out += [dot(Px, ii * ii), dot(Py, jj * jj), dot(Pz, kk * kk),
+                dot(dot(Pxy, jj), ii), dot(dot(Pxz, kk), ii),
+                dot(dot(Pyz, kk), jj)]
     return torch.stack(out, dim=-1)
 
 
-def _assemble(g_m0, g_m1, w_m0, w_m1, w_m2, dRq, center):
-    """Host float64 assembly of the GN gradient and Hessian from moments.
+def _assemble(g_m0, g_m1, w_m0, w_m1, w_m2, dRq, center, lkp=_LKP):
+    """Float64 assembly of the GN gradient and Hessian from moments: numpy
+    for host arrays, torch on the tensors' device (``center`` a (3,) and
+    ``lkp`` :data:`_LKP` as tensors there too). Every contraction is a
+    broadcast product and a sum (no library matrix product: see
+    :func:`_moments`).
 
     dAff_{i,d}(o) = c[i,d] + sum_e b[i,d,e] (o_e - center_e) with
     b[i,d,e] = dRq[i][d,e], c[i,d] = dRq[i][d,3] + sum_e b[i,d,e] center_e.
     g_m0 (3,), g_m1 (3,3) are the moments of the gradient volumes G_d;
     w_m0 (6,), w_m1 (6,3), w_m2 (6,6) those of the Hessian weights W_k.
     """
-    dRq = np.asarray(dRq, np.float64)
-    b = dRq[:, :3, :3]
-    cc = dRq[:, :3, 3] + b @ np.asarray(center, np.float64)
-    g = cc @ np.asarray(g_m0) + np.einsum("kde,de->k", b, np.asarray(g_m1))
-    m2 = np.asarray(w_m2)
-    M2 = np.stack([m2[:, [0, 3, 4]], m2[:, [3, 1, 5]], m2[:, [4, 5, 2]]],
-                  axis=1)  # (6, 3, 3)
-    m0m = np.asarray(w_m0)[_LKP]  # (3, 3)
-    m1m = np.asarray(w_m1)[_LKP]  # (3, 3, 3)
-    M2m = M2[_LKP]  # (3, 3, 3, 3)
-    H = (np.einsum("kd,je,de->kj", cc, cc, m0m)
-         + np.einsum("kd,jef,def->kj", cc, b, m1m)
-         + np.einsum("kdf,je,def->kj", b, cc, m1m)
-         + np.einsum("kdf,jeg,defg->kj", b, b, M2m))
+    if not isinstance(dRq, torch.Tensor):
+        g_m0, g_m1, w_m0, w_m1, w_m2, dRq, center = (
+            np.asarray(a, np.float64) for a in (g_m0, g_m1, w_m0, w_m1, w_m2,
+                                                dRq, center))
+    b = dRq[:, :3, :3]  # (k, d, e)
+    cc = dRq[:, :3, 3] + (b * center).sum(axis=-1)  # (k, d)
+    g = (cc * g_m0).sum(axis=-1) + (b * g_m1).sum(axis=(-2, -1))
+    M2 = w_m2[:, lkp]  # (6, 3, 3): the symmetric second moments
+    m0m = w_m0[lkp]  # (3, 3)
+    m1m = w_m1[lkp]  # (3, 3, 3)
+    M2m = M2[lkp]  # (3, 3, 3, 3)
+    # H[k, j] over d, e (and f, g): cc cc m0, cc b m1, b cc m1, b b M2
+    H = ((cc[:, None, :, None] * cc[None, :, None, :] * m0m)
+         .sum(axis=(-2, -1))
+         + (cc[:, None, :, None, None] * b[None, :, None, :, :] * m1m)
+         .sum(axis=(-3, -2, -1))
+         + (b[:, None, :, None, :] * cc[None, :, None, :, None] * m1m)
+         .sum(axis=(-3, -2, -1))
+         + (b[:, None, :, None, :, None] * b[None, :, None, :, None, :]
+            * M2m).sum(axis=(-4, -3, -2, -1)))
     return g, H
 
 
-def gn_delta(g, H) -> np.ndarray:
-    """The fit loop's 6x6 solve: Jacobi-equilibrated, with a 1e-5 ridge on
-    the equilibrated system (unires_tpu/solvers/fitloop.py:480-489)."""
-    dscale = 1.0 / np.sqrt(np.abs(np.diagonal(H)) + 1e-20)
+def _spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x with A x = b for a small symmetric positive definite A: Cholesky
+    column by column and two triangular substitutions, in elementwise
+    tensor ops on A's device (no library handle, no check read back)."""
+    n = A.shape[-1]
+    L = torch.zeros_like(A)
+    for j in range(n):
+        v = A[j:, j]
+        if j:
+            v = v - (L[j:, :j] * L[j, :j]).sum(dim=-1)
+        L[j:, j] = v / torch.sqrt(v[0])
+    y = torch.zeros_like(b)
+    for i in range(n):
+        r = b[i] - (L[i, :i] * y[:i]).sum() if i else b[i]
+        y[i] = r / L[i, i]
+    x = torch.zeros_like(b)
+    for i in reversed(range(n)):
+        r = y[i] - (L[i + 1:, i] * x[i + 1:]).sum() if i < n - 1 else y[i]
+        x[i] = r / L[i, i]
+    return x
+
+
+def gn_delta(g: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+    """The fit loop's 6x6 solve on the tensors' device: Jacobi-equilibrated,
+    with a 1e-5 ridge on the equilibrated system
+    (unires_tpu/solvers/fitloop.py:480-489), by Cholesky (the ridged system
+    is positive definite)."""
+    dscale = 1.0 / torch.sqrt(torch.abs(torch.diagonal(H)) + 1e-20)
     Hn = H * dscale[:, None] * dscale[None, :]
-    return np.linalg.solve(Hn + 1e-5 * np.eye(len(g)), g * dscale) * dscale
+    eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
+    return _spd_solve(Hn + 1e-5 * eye, g * dscale) * dscale
 
 
 def match_stats_device(dat_x, dat_y, M, scl, tau, suite, po: ProjOp, sr,

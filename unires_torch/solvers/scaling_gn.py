@@ -10,9 +10,11 @@ where +/- are the exp(+s) (even-index) / exp(-s) (odd-index) slice groups and
 y is the projected reconstruction with the current scaling applied. The
 projection (pull + blur) is computed once per observation and update; the
 line search only re-applies the diagonal scaling. CT observations are
-skipped (reference :286-288). Sums are taken in float64 and read back to the
-host together (one synchronisation for the statistics, one for all the line
-search's candidates).
+skipped (reference :286-288). Sums are taken in float64. The step
+(:func:`scaling_gn`) decides on the device, its candidates evaluated in turn
+until one is accepted (``utils.graph.cond``); the fit chunk runs it in its
+graph, the host API (:func:`scaling_step`, :func:`update_scaling`) reads
+each decision and the result.
 
 One deliberate difference from the JAX package: its host ``update_scaling``
 builds the pose as the uncentred ``expm(q)`` (unires_tpu/solvers/
@@ -29,6 +31,7 @@ from ..geometry import fov_centre, rigid_from_q
 from ..models.forward import make_obs_suite, obs_dyn_args
 from ..models.proj_op import ProjOp
 from ..ops.scaling import apply_scaling, even_slices, odd_slices
+from ..utils.graph import cond
 from ..utils.host import to_host
 
 
@@ -36,47 +39,67 @@ def _f64(v: torch.Tensor) -> torch.Tensor:
     return v.sum(dtype=torch.float64)
 
 
-def scaling_stats(dat_y0, dat_x, s, tau, axis) -> np.ndarray:
-    """(ll, gr, Hes) at scaling ``s`` (``dat_y0``: unscaled projection)."""
+def _sums(dat_y0, dat_x, s, axis) -> torch.Tensor:
+    """(sum res^2, sum y+(x+ - y+), sum y-(x- - y-), sum y+^2, sum y-^2)
+    at scaling ``s``, float64 on the data's device."""
     dat_y = apply_scaling(dat_y0, s, axis)
     msk = dat_x != 0
     res = torch.where(msk, dat_x - dat_y, 0.0)
     y = torch.where(msk, dat_y, 0.0)
     ye, yo = even_slices(y, axis), odd_slices(y, axis)
     xe, xo = even_slices(dat_x, axis), odd_slices(dat_x, axis)
-    sums = torch.stack([_f64(res * res), _f64(ye * (xe - ye)),
+    return torch.stack([_f64(res * res), _f64(ye * (xe - ye)),
                         _f64(yo * (xo - yo)), _f64(ye * ye), _f64(yo * yo)])
-    ll2, sp, sm, he, ho = (float(v) for v in to_host(sums))
+
+
+def _res2(dat_y0, dat_x, s, axis) -> torch.Tensor:
+    res = torch.where(dat_x != 0, dat_x - apply_scaling(dat_y0, s, axis), 0.0)
+    return _f64(res * res)
+
+
+def scaling_stats(dat_y0, dat_x, s, tau, axis) -> np.ndarray:
+    """(ll, gr, Hes) at scaling ``s`` (``dat_y0``: unscaled projection)."""
+    ll2, sp, sm, he, ho = (float(v) for v in to_host(
+        _sums(dat_y0, dat_x, s, axis)))
     return np.array([0.5 * tau * ll2, tau * (sm - sp), tau * (he + ho)])
 
 
-def scaling_lls(dat_y0, dat_x, cands, tau, axis) -> np.ndarray:
-    """The data term at every scaling in ``cands`` (one read-back)."""
-    msk = dat_x != 0
-    lls = []
-    for s in cands:
-        res = torch.where(msk, dat_x - apply_scaling(dat_y0, s, axis), 0.0)
-        lls.append(_f64(res * res))
-    return 0.5 * tau * to_host(torch.stack(lls))
+def scaling_gn(dat_y0, dat_x, s0: torch.Tensor, tau: float, axis: int,
+               num_ls: int = 6):
+    """One Gauss-Newton step with a halving line search from step 1, on
+    the device: (s, ll), 0-d float64 tensors, from ``s0`` (0-d float64 on
+    the data's device), with nothing read back under a capture. The
+    candidates are evaluated in turn, each under ``utils.graph.cond``, and
+    the first whose data term falls below the current one is taken, later
+    ones not evaluated (the JAX loop's ``while_loop``); none: ``s0`` and the
+    current data term. With ``num_ls = 0`` the full step is taken unchecked
+    and ll is the current one."""
+    ll2, sp, sm, he, ho = _sums(dat_y0, dat_x, s0, axis).unbind()
+    ll0 = 0.5 * tau * ll2
+    delta = tau * (sm - sp) / torch.clamp(tau * (he + ho), min=1e-30)
+    if num_ls == 0:
+        return s0 - delta, ll0
+    s, ll = s0.clone(), ll0.clone()
+    acc = torch.zeros((), dtype=torch.bool, device=s0.device)
+    for k in range(num_ls):
+        def candidate(k=k):
+            cand = s0 - 0.5 ** k * delta
+            llc = 0.5 * tau * _res2(dat_y0, dat_x, cand, axis)
+            ok = llc < ll0
+            s.copy_(torch.where(ok, cand, s))
+            ll.copy_(torch.where(ok, llc, ll))
+            acc.copy_(acc | ok)
+        cond(~acc, candidate)
+    return s, ll
 
 
 def scaling_step(dat_y0, dat_x, s0, tau, axis, num_ls: int = 6):
-    """One Gauss-Newton step with a halving line search from step 1.
-
-    Returns (s, ll): the first candidate whose data term falls below the
-    current one, else ``s0`` (the fit loop's ``scaling_obs``). With
-    ``num_ls = 0`` the full step is taken unchecked and ll is the old one.
-    """
-    ll0, gr, hes = scaling_stats(dat_y0, dat_x, s0, tau, axis)
-    delta = gr / max(hes, 1e-30)
-    if num_ls == 0:
-        return float(s0 - delta), float(ll0)
-    cands = [s0 - 0.5 ** k * delta for k in range(num_ls)]
-    lls = scaling_lls(dat_y0, dat_x, cands, tau, axis)
-    for s, ll in zip(cands, lls):
-        if ll < ll0:
-            return float(s), float(ll)
-    return float(s0), float(ll0)
+    """:func:`scaling_gn` from a host scale, read back: (s, ll) floats."""
+    s, ll = scaling_gn(dat_y0, dat_x, torch.tensor(
+        float(s0), dtype=torch.float64, device=dat_x.device), tau, axis,
+        num_ls)
+    s, ll = to_host(torch.stack([s, ll]))
+    return float(s), float(ll)
 
 
 def make_scaling_fns(po: ProjOp, method: str):
@@ -88,7 +111,7 @@ def make_scaling_fns(po: ProjOp, method: str):
         return tuple(scaling_stats(dat_y0, dat_x, s, tau, axis))
 
     def ll_at(dat_y0, dat_x, s, tau):
-        return float(scaling_lls(dat_y0, dat_x, [s], tau, axis)[0])
+        return 0.5 * tau * float(to_host(_res2(dat_y0, dat_x, s, axis)))
 
     return project, stats, ll_at
 
