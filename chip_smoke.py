@@ -45,16 +45,25 @@ Phases, each printing its lines:
    iteration, peak memory of init and of the whole, each beside the
    figures of the host-driven loop the chunk replaced; requires init's peak <= 3.5 GiB and at most 0.25 host syncs
    per iteration (the fit runs in chunks of 16 iterations, each one CUDA
-   graph replayed with conditional nodes and read once). Then (5b) the
+   graph replayed with conditional nodes and read once). Co-registration
+   runs each pyramid level as one CUDA graph (a WHILE node over the NMI
+   descent, an IF node per mover's evaluation) read once: one line per
+   level (voxel size, grid, movers, evaluations per mover, WHILE turns,
+   seconds of warm-up + capture and of replay + read, graph nodes, host
+   syncs), coreg's seconds and host syncs beside the host-driven descent's;
+   requires at most 2 host syncs per level. Then (5b) the
    same 8 iterations from a copy of the same init, uncaptured on the card
    (every decision read on the host): the traces and the poses must equal
    the captured run's; both runs' host syncs per iteration and s/iter.
+   (5c) The same coreg from copies of the same inputs, uncaptured: its
+   mat_a must equal the captured run's digit for digit; both times.
 6. Init options at full width: the same misaligned phantom placed in the
    atlas frame and displaced by a known rigid transform, through
    ``unires_torch.init`` with ``common_output`` (co-registration, atlas
    alignment, crop to the atlas box, pow 256) and a label on channel 0,
-   then 4 fit iterations. Counters reset before and read after. Requires
-   the atlas transform recovered, the output grid equal to the atlas box's,
+   then 4 fit iterations. Counters reset before and read after. Atlas
+   alignment (CSO) prints its levels as phase 5's coreg, with the same
+   bound on host syncs. Requires the atlas transform recovered, the output grid equal to the atlas box's,
    a finite falling objective and a label volume on the output grid with
    the input's values. Then a small CT-flagged observation with a label
    through ``do_res_origin`` and ``force_inplane_res``, card against CPU.
@@ -94,7 +103,8 @@ Phases, each printing its lines:
    launch pull and push, every launch through FOV = true.
 
 The line before the last holds the kernels' JSON record (``launches`` from
-the misaligned run, ``launches_atlas`` from phase 6, ``launches_batch`` from
+the misaligned run, ``launches_coreg`` the part of them inside its
+co-registration, ``launches_atlas`` from phase 6, ``launches_batch`` from
 phase 8's ``fit_batch``, ``launches_converged`` from phase 9,
 ``launches_parallel`` and ``launches_parallel_fov`` (the FOV = true ones)
 summed over phase 10's two spatial steps; ``fov`` the FOV = true cases of
@@ -195,6 +205,13 @@ HOST_LOOP = dict(n_iter=100, psnr=25.782, ratio=0.4817,
                  s_iter="0.0880-0.1023")
 # the fit in chunks: init's peak memory (GiB) and host syncs per iteration
 INIT_PEAK_GIB, SYNCS_PER_ITER = 3.5, 0.25
+# a registration level on the card: the capture's wait and the level's read
+SYNCS_PER_LEVEL = 2
+# the figures of the host-driven NMI descent the level graphs replaced (one
+# host read per evaluation; PERF.md section 5), printed beside this run's:
+# phase 5's coreg seconds and host syncs, phase 6's atlas alignment
+HOST_NMI = dict(coreg_s="3.3-5.8", coreg_syncs=">= 404", atlas_s="1.83-3.25",
+                atlas_evals=250)
 # the parallel steps against make_admm_step, as the CPU tests hold them: the
 # sharded step (ys of its scale, z and w absolute, objective relative), and
 # the slab steps, whose slab-local preconditioner stops CG elsewhere
@@ -756,22 +773,55 @@ def _pose_error(E, dim):
     return ang, float(disp.max())
 
 
-def _timed(name, record):
+def _timed(name, record, keep_args=False):
     """Wrap ``run_mod.<name>`` (a registration entry ``init`` calls) so that
-    its seconds and pull_grad launches, one per NMI evaluation, land in
-    ``record``. Returns the original, to be put back."""
+    its seconds, its launches of each kernel (one pull and one pull_grad per
+    NMI evaluation), its host syncs, its levels' figures (the entry's
+    ``stats``) and its result land in ``record``, with copies of its
+    arguments when ``keep_args``. Returns the original, to be put back."""
     fn = getattr(run_mod, name)
 
     def timed(*args, **kw):
-        n0, c0 = pull_grad.launches, time.perf_counter()
-        out = fn(*args, **kw)
+        if keep_args:
+            record["args"] = ([(d.clone(), np.array(m)) for d, m in args[0]],
+                              *args[1:])
+            record["kw"] = dict(kw)
+        levels = []
+        n0 = _counts()
+        s0, c0 = to_host.syncs, time.perf_counter()
+        out = fn(*args, stats=levels, **kw)
         torch.cuda.synchronize()
-        record.update(s=time.perf_counter() - c0,
-                      pull_grad=pull_grad.launches - n0)
+        n1 = _counts()
+        record.update(s=time.perf_counter() - c0, syncs=to_host.syncs - s0,
+                      launches={k: n1[k] - n0[k] for k in n1},
+                      levels=levels, out=out)
         return out
 
     setattr(run_mod, name, timed)
     return fn
+
+
+def _print_levels(tag, levels):
+    """One line per registration level: voxel size, grid, movers,
+    evaluations per mover, WHILE turns, seconds (warm-up + capture, then
+    replay + read), graph nodes and host syncs."""
+    for lv in levels:
+        nodes = "uncaptured" if lv["nodes"] is None else f"{lv['nodes']} nodes"
+        print(f"[{tag}] level {lv['mm']:g} mm {lv['group']} grid "
+              f"{tuple(lv['grid'])} | movers {lv['movers']} | evaluations "
+              f"per mover {lv['evals']} | WHILE turns {lv['turns']} | "
+              f"{lv['s']:.3f} s (warm-up + capture {lv['setup_s']:.3f}, "
+              f"{nodes}; replay + read {lv['run_s']:.3f}) | host syncs "
+              f"{lv['syncs']}")
+
+
+def _check_level_syncs(tag, rec):
+    n_lv = len(rec["levels"])
+    require(n_lv > 0 and rec["syncs"] <= SYNCS_PER_LEVEL * n_lv,
+            f"{tag}: {rec['syncs']} host syncs over {n_lv} levels > "
+            f"{SYNCS_PER_LEVEL} per level")
+    require(all(lv["nodes"] is not None for lv in rec["levels"]),
+            f"{tag}: a level ran uncaptured")
 
 
 def _timed_captures(record):
@@ -795,13 +845,15 @@ def _timed_captures(record):
 
 def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
     """The bench.py workload: coreg + unified rigid + scaling at full width;
-    then (5b) the same fit uncaptured from a copy of the same init."""
+    then (5b) the same fit uncaptured from a copy of the same init, and (5c)
+    the same coreg uncaptured. Returns the kernels' launches and those of
+    coreg."""
     t0 = time.perf_counter()
     gts, rigids, chans = _bench_workload(device, dim, misaligned=True)
     print(f"[bench] phantom + degrade {time.perf_counter() - t0:.2f} s")
 
     coreg = {}
-    affine_align = _timed("affine_align", coreg)
+    affine_align = _timed("affine_align", coreg, keep_args=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -830,7 +882,16 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
 
-    require(coreg["pull_grad"] > 0, "coreg launched no pull_grad")
+    n_coreg = coreg["launches"]
+    require(n_coreg["pull_grad"] > 0 and n_coreg["pull"] > 0,
+            "coreg launched no pull or pull_grad")
+    _print_levels("coreg", coreg["levels"])
+    print(f"[coreg] {coreg['s']:.3f} s in {len(coreg['levels'])} levels "
+          f"(host loop: {HOST_NMI['coreg_s']} s) | host syncs "
+          f"{coreg['syncs']} (host loop: {HOST_NMI['coreg_syncs']}) | "
+          f"launches {n_coreg} | "
+          f"init {t_init:.3f} s, peak {peak_init / 2 ** 30:.3f} GiB")
+    _check_level_syncs("coreg", coreg)
     require(launches["pull_grad"] - n_grad0 > 0,
             "the rigid update launched no pull_grad")
     require(launches["pull"] > 0 and launches["push"] > 0,
@@ -841,8 +902,8 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
     require(all(np.isfinite(R).ravel()) and all(np.isfinite(scl)),
             "non-finite pose or scale")
     print(f"[bench] dims {tuple(y[0].dim)} x 3 | init {t_init:.3f} s "
-          f"(coreg {coreg['s']:.3f} s, {coreg['pull_grad']} pull_grad) | fit "
-          f"{t_fit:.3f} s, {t_fit / n_iter:.4f} s/iter (host loop: "
+          f"(coreg {coreg['s']:.3f} s, {n_coreg['pull_grad']} pull_grad) | "
+          f"fit {t_fit:.3f} s, {t_fit / n_iter:.4f} s/iter (host loop: "
           f"{HOST_LOOP['s_iter']}), of it {cap['n']} warm-up and capture "
           f"{cap['s']:.3f} s, {(t_fit - cap['s']) / n_iter:.4f} s/iter "
           f"without, n_iter {n_iter} | nll {obj[:, 0].tolist()} | "
@@ -883,7 +944,24 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
     require(n_u == n_iter and np.array_equal(obj, obj_u),
             "the captured trace differs from the uncaptured one")
     require(dq == 0.0, f"the captured poses differ from the uncaptured: {dq}")
-    return launches
+
+    # 5c: the same coreg uncaptured, every decision read on the host
+    torch.cuda.synchronize()
+    syncs0, t0 = to_host.syncs, time.perf_counter()
+    levels_u = []
+    mat_u = run_mod.affine_align(*coreg["args"], capture=False,
+                                 stats=levels_u, **coreg["kw"])
+    torch.cuda.synchronize()
+    t_u, syncs_u = time.perf_counter() - t0, to_host.syncs - syncs0
+    _print_levels("coreg-uncaptured", levels_u)
+    same = np.array_equal(np.asarray(coreg["out"]), np.asarray(mat_u))
+    print(f"[coreg] captured vs uncaptured, from the same inputs: mat_a "
+          f"equal {same}, max |d| "
+          f"{float(np.abs(np.asarray(coreg['out']) - mat_u).max()):.3e} | "
+          f"seconds captured {coreg['s']:.3f}, uncaptured {t_u:.3f} | host "
+          f"syncs captured {coreg['syncs']}, uncaptured {syncs_u}")
+    require(same, "the captured coreg's mat_a differs from the uncaptured")
+    return launches, n_coreg
 
 
 def _residual(mat, true):
@@ -949,7 +1027,14 @@ def phase_atlas(tmp, device="cuda", dim=DIM_Y, max_iter=4, vx=1.0):
                 "pull_grad": pull_grad.launches}
     peak = torch.cuda.max_memory_allocated()
 
-    require(rec["pull_grad"] > 0, "atlas alignment launched no pull_grad")
+    require(rec["launches"]["pull_grad"] > 0,
+            "atlas alignment launched no pull_grad")
+    _print_levels("atlas", rec["levels"])
+    print(f"[atlas] alignment {rec['s']:.3f} s in {len(rec['levels'])} "
+          f"levels (host loop: {HOST_NMI['atlas_s']} s for "
+          f"{HOST_NMI['atlas_evals']} evaluations) | host syncs "
+          f"{rec['syncs']} | launches {rec['launches']}")
+    _check_level_syncs("atlas", rec)
     require(all(n > 0 for n in launches.values()),
             f"a kernel of the path never launched: {launches}")
     _check_fit(dat_y, y, obj, jtv, n_iter, max_iter)
@@ -963,7 +1048,8 @@ def phase_atlas(tmp, device="cuda", dim=DIM_Y, max_iter=4, vx=1.0):
     require(vals <= set(np.unique(lab).tolist()) and len(vals) > 1,
             f"label values {vals}")
     print(f"[atlas] dims {tuple(y[0].dim)} x 3 | init {t_init:.3f} s (atlas "
-          f"align {rec['s']:.3f} s, {rec['pull_grad']} NMI evaluations) | "
+          f"align {rec['s']:.3f} s, {rec['launches']['pull_grad']} NMI "
+          f"evaluations) | "
           f"launches in init: pull {n_init[0]}, pull_grad {n_init[1]}; all: "
           f"{launches} | nll {obj[:, 0].tolist()} | label values "
           f"{sorted(vals)} | peak mem {peak / 2 ** 30:.3f} GiB")
@@ -1526,7 +1612,7 @@ def main():
     phase_small_slice()
     phase_small_misaligned()
     phase_slice()
-    launches = phase_misaligned()
+    launches, launches_coreg = phase_misaligned()
     with tempfile.TemporaryDirectory() as tmp:
         launches_atlas = phase_atlas(tmp)
         phase_ct_inplane(tmp)
@@ -1536,6 +1622,7 @@ def main():
         launches_parallel = phase_parallel(tmp, smi)
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], launches=launches[name],
+                    launches_coreg=launches_coreg[name],
                     launches_atlas=launches_atlas[name],
                     launches_batch=launches_batch[name],
                     launches_converged=launches_converged[name],

@@ -16,11 +16,13 @@ the host's versions and the JAX package's.
 * The wrappers with maps given as tensors (the CPU path reads them as the
   host maps) and with the push plan as ``Minv``: bitwise equal.
 * ``utils.graph.cond`` on the CPU: one counted read per decision.
-* One co-registration level's loss and gradient, its histogram summed
-  chunk by chunk, against the formula it replaced (every chunk's weights
-  held at once, autograd through the whole histogram), written out below,
-  on levels of two and of nine chunks: the same float32 roundings, so equal
-  to 1e-6 relative (measured: bitwise).
+* One co-registration level's loss and gradient (``_NMILevel.vg``, device
+  tensors), its histogram summed chunk by chunk, against the formula it
+  replaced (every chunk's weights held at once, autograd through the whole
+  histogram), written out below, on levels of two and of nine chunks: the
+  same float32 roundings, so equal to 1e-6 relative (measured: the loss
+  and the cotangent bitwise, the gradient, whose float64 exponential and
+  contraction are now torch's, to 6e-16).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -202,8 +204,9 @@ def test_cond_reads_each_decision_once_on_the_cpu():
 def _old_level(lev, q):
     """(loss, gradient) as the level computed them before: every chunk's
     fixed weights held at once, autograd through the whole histogram."""
-    R, dR = dexpm(q, lev.basis)
-    M = tlie.compose_maps(lev.pre4, R, lev.post4)[0]
+    pre4, post4, basis = (t.numpy() for t in (lev.pre4, lev.post4, lev.basis))
+    R, dR = dexpm(q, basis)
+    M = tlie.compose_maps(pre4, R, post4)[0]
     fix = torch.cat(lev.fn)
     Wf = [treg._soft_weights(c) for c in torch.split(fix, treg._CHUNK)]
     movf = treg.pull(lev.mov, M, lev.fix_dim).reshape(-1).requires_grad_()
@@ -224,7 +227,7 @@ def _old_level(lev, q):
     pg = treg.pull_grad(lev.mov, M, lev.fix_dim)
     W = ct.reshape(lev.fix_dim)[None] * pg.permute(3, 0, 1, 2)
     mom = treg._moments(W, lev.coords, order=1).numpy()
-    B = np.einsum("ij,kjl,lm->kim", lev.pre4, dR, lev.post4)
+    B = np.einsum("ij,kjl,lm->kim", pre4, dR, post4)
     ccf = B[:, :3, 3] + B[:, :3, :3] @ np.asarray(lev.center)
     g = ccf @ mom[:, 0] + np.einsum("kde,de->k", B[:, :3, :3], mom[:, 1:])
     return float(L), g, ct
@@ -244,13 +247,14 @@ def test_coreg_level_chunked_matches_the_held_histogram(dim, chunk,
     pre4 = np.linalg.inv(affine_matrix_classic([0.4, -0.3, 0.2]))
     lev = treg._NMILevel(fix, mov, pre4, np.eye(4))
     for q in (np.zeros(6), np.array([0.5, 0.2, -0.3, 0.01, 0.02, -0.015])):
-        loss, g = lev(q)
+        loss, g = lev.vg(torch.from_numpy(q))
+        loss, g = float(loss), g.numpy()
         loss_old, g_old, ct_old = _old_level(lev, q)
         assert loss == pytest.approx(loss_old, rel=1e-6)
         np.testing.assert_allclose(g, g_old, rtol=1e-6,
                                    atol=1e-6 * np.abs(g_old).max())
-        R, _ = dexpm(q, lev.basis)
-        M = tlie.compose_maps(lev.pre4, R, lev.post4)[0]
+        R, _ = dexpm(q, lev.basis.numpy())
+        M = tlie.compose_maps(lev.pre4.numpy(), R, lev.post4.numpy())[0]
         _, ct = lev._loss_cotangent(
             treg.pull(lev.mov, M, lev.fix_dim).reshape(-1))
         np.testing.assert_allclose(ct.numpy(), ct_old.numpy(), rtol=1e-6,

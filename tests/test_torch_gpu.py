@@ -15,9 +15,10 @@ and scaling updates on (they feed the sums' differences back into the fit);
 co-registration card vs CPU 0.1 mm / 2e-3; the sharded step on a world of
 one (NCCL) against ``make_admm_step`` as tests/test_torch_sharding.py holds
 it (ys 2e-3 of scale, z and w 1e-3, objective rtol 2e-3); maps read from
-device memory against staged host maps, a captured graph and its IF nodes
-against eager launches, and the captured fit chunk against the uncaptured
-one, all exact.
+device memory against staged host maps, a captured graph and its IF and
+WHILE nodes against eager launches, the captured fit chunk against the
+uncaptured one, and co-registration with its levels captured against the
+same levels uncaptured, all exact.
 """
 import copy
 
@@ -446,3 +447,116 @@ def test_captured_chunk_matches_uncaptured(cuda):
     np.testing.assert_array_equal(a.state.host["scl"], b.state.host["scl"])
     assert np.abs(a.state.host["q"]).max() > 0.05  # the poses moved
     assert torch.equal(a.state.ys, b.state.ys)
+
+
+def test_while_node_runs_until_its_predicate_fails(cuda):
+    """A WHILE node with an IF node in its body: the body runs as long as
+    the device predicate holds (none when it fails at entry), the IF body
+    only where its own predicate holds, and the kernels count their
+    launches in every turn."""
+    from unires_torch.utils.graph import capture, cond, forced, while_loop
+
+    vol = _vol(IN_DIM, 15, cuda)
+    Md = torch.from_numpy(tr.affine_to_M(MAPS[2][1])).to(cuda)
+    n = torch.zeros((), dtype=torch.int32, device=cuda)
+    stop = torch.zeros((), dtype=torch.int32, device=cuda)
+    acc = torch.zeros(IN_DIM, device=cuda)
+
+    def loop():
+        def body():
+            cond(n % 2 == 0, lambda: acc.add_(tr.pull(vol, Md, IN_DIM)))
+            n.add_(1)
+        while_loop(lambda: n < stop, body)
+
+    with forced():
+        loop()
+    graph = capture(loop)
+    assert graph.nodes > 4
+    one = tr.pull_plain(vol, Md.cpu().numpy(), IN_DIM).to(cuda)
+    for start, end in ((0, 5), (3, 3), (6, 2), (1, 8)):
+        n.fill_(start)
+        stop.fill_(end)
+        acc.zero_()
+        p0 = tr.pull.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        evens = sum(1 for k in range(start, end) if k % 2 == 0)
+        assert int(n) == max(start, end)
+        assert tr.pull.launches - p0 == evens
+        want = torch.zeros_like(one)
+        for _ in range(evens):
+            want = want + one
+        assert torch.equal(acc, want)
+
+
+def _coreg_inputs():
+    """Three 4 mm thick-slice channels of a phantom crop, each displaced."""
+    vol = brain_phantom(seed=0)[50:130, 60:156, 50:130]
+    rng = np.random.default_rng(6)
+    imgs = []
+    for ax, rp in ((2, [0.0] * 6), (0, [1.5, -1.0, 0.8, 0.02, -0.015, 0.01]),
+                   (1, [-1.2, 0.9, -0.6, -0.015, 0.02, -0.012])):
+        vx = [1.0, 1.0, 1.0]
+        vx[ax] = 4.0
+        dim_x = list(vol.shape)
+        dim_x[ax] = int(np.ceil(vol.shape[ax] / 4.0))
+        po = proj_info(vol.shape, np.eye(4), tuple(dim_x), affine_diag(vx),
+                       rigid=affine_matrix_classic(rp), prof_ip=2, prof_tp=0)
+        x = unires_torch.proj_apply("A", torch.from_numpy(vol), po,
+                                    "super-resolution").numpy()
+        x = x + rng.normal(0.0, 75.0, x.shape).astype(np.float32)
+        imgs.append((torch.from_numpy(x).to("cuda"), affine_diag(vx)))
+    return imgs
+
+
+def test_captured_coreg_matches_uncaptured(cuda):
+    """Co-registration with every level one captured graph (a WHILE node,
+    an IF node per mover) against the same levels uncaptured: equal mat_a
+    digit for digit; the captured run waits for the device once per level
+    (its capture) and reads it once per level, the uncaptured at every
+    turn."""
+    from unires_torch.pipeline import registration as treg
+    from unires_torch.utils.host import to_host
+
+    imgs = _coreg_inputs()
+    out = {}
+    for captured in (True, False):
+        s0, levels = to_host.syncs, []
+        mat_a = treg.affine_align(imgs, levels=(8.0, 4.0), samp=2,
+                                  capture=captured, stats=levels)
+        out[captured] = (mat_a, to_host.syncs - s0, levels)
+    (ma, sa, la), (mb, sb, lb) = out[True], out[False]
+    np.testing.assert_array_equal(ma, mb)
+    assert len(la) == 3 and sa <= 2 * len(la)
+    assert all(lv["syncs"] == 2 and lv["captured"] for lv in la)
+    assert sb > 2 * len(lb)
+    for a, b in zip(la, lb):
+        assert a["evals"] == b["evals"] and a["turns"] == b["turns"]
+        assert a["movers"] == 2 and a["turns"] == max(a["evals"]) - 1
+    assert np.abs(ma[1:, :3, 3]).max() > 0.5  # the movers moved
+
+
+def test_captures_outlast_the_stream_pool(cuda):
+    """Graphs with conditional nodes keep capturing after PyTorch's stream
+    pool (32 streams per priority) has gone round: the capture and body
+    streams are the graph module's own."""
+    from unires_torch.utils.graph import capture, cond, while_loop
+
+    n = torch.zeros((), dtype=torch.int32, device=cuda)
+    out = torch.zeros(4, device=cuda)
+
+    def loop():
+        def body():
+            cond(n % 3 == 0, lambda: out.add_(1.0))
+            n.add_(1)
+        while_loop(lambda: n < 7, body)
+
+    loop()  # uncaptured: builds and launches everything once
+    for k in range(40):
+        torch.cuda.Stream()  # another caller's pool stream
+        graph = capture(loop)
+        n.zero_()
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(n) == 7 and float(out[0]) == 3.0, k

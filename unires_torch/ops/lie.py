@@ -3,18 +3,19 @@ device's in float64 torch.
 
 The counterpart of ``unires_tpu.ops.lie``. The JAX package computes its
 SE(3) exponential and maps in float32 on the device so that its fit loop can
-update poses inside one jitted program. The port's fit chunk does the same
-on the card (``solvers.fitloop.make_fit_chunk``), in float64 torch ops that
-read nothing back: :func:`se3_expm` (Rodrigues), :func:`se3_dexpm` (its
-derivative in each parameter, the exact Frechet derivative of the
-exponential), :func:`expm44` / :func:`group_expm` (Taylor with scaling and
-squaring, any basis), :func:`inv44` and :func:`compose_maps`, batched over
-leading dimensions. The host callers (co-registration, the init) keep
-:func:`unires_torch.geometry.expm` / ``dexpm`` (scipy) and the numpy forms
-of :func:`inv44` and :func:`compose_maps`, which the same names take for
-numpy input. The maps are composed and inverted in float64 and cast to
-float32 once; expect their last bits to differ from the JAX package's,
-which rounds ``pre @ R @ post`` in float32.
+update poses inside one jitted program. The port's fit chunk and its NMI
+registration levels do the same on the card (``solvers.fitloop``,
+``pipeline.registration``), in float64 torch ops that read nothing back:
+:func:`se3_expm` (Rodrigues), :func:`se3_dexpm` (its derivative in each
+parameter, the exact Frechet derivative of the exponential),
+:func:`expm44` / :func:`group_expm` (Taylor with scaling and squaring, any
+basis) and :func:`group_dexpm` (its derivative), :func:`inv44` and
+:func:`compose_maps`, batched over leading dimensions. The host callers
+(the init) keep :func:`unires_torch.geometry.expm` / ``dexpm`` (scipy) and
+the numpy forms of :func:`inv44` and :func:`compose_maps`, which the same
+names take for numpy input. The maps are composed and inverted in float64
+and cast to float32 once; expect their last bits to differ from the JAX
+package's, which rounds ``pre @ R @ post`` in float32.
 """
 from __future__ import annotations
 
@@ -136,13 +137,10 @@ def group_expm(q: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     return expm44(_algebra(q, basis))
 
 
-def se3_dexpm(q: torch.Tensor, basis: torch.Tensor):
-    """(R, dR) with dR[..., k, :, :] = d exp(sum_i q_i B_i) / d q_k.
-
-    R is :func:`se3_expm`'s; dR is the Frechet derivative of the
-    exponential at X in the direction B_k, the top-right block of
-    exp([[X, B_k], [0, X]]) (as scipy's ``expm_frechet``; the JAX package
-    differentiates its float32 closed form)."""
+def _frechet(q: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """dR[..., k, :, :] = d exp(sum_i q_i B_i) / d q_k: the Frechet
+    derivative of the exponential at X in the direction B_k, the top-right
+    block of exp([[X, B_k], [0, X]]) (as scipy's ``expm_frechet``)."""
     X = _algebra(q, basis)
     K = basis.shape[0]
     Xk = X[..., None, :, :].expand(X.shape[:-2] + (K, 4, 4))
@@ -150,4 +148,18 @@ def se3_dexpm(q: torch.Tensor, basis: torch.Tensor):
     Z[..., :4, :4] = Xk
     Z[..., 4:, 4:] = Xk
     Z[..., :4, 4:] = basis
-    return se3_expm(q, basis), expm44(Z)[..., :4, 4:]
+    return expm44(Z)[..., :4, 4:]
+
+
+def se3_dexpm(q: torch.Tensor, basis: torch.Tensor):
+    """(R, dR) with dR[..., k, :, :] = d exp(sum_i q_i B_i) / d q_k for the
+    'SE' basis: R is :func:`se3_expm`'s, dR the exact Frechet derivative
+    (the JAX package differentiates its float32 closed form)."""
+    return se3_expm(q, basis), _frechet(q, basis)
+
+
+def group_dexpm(q: torch.Tensor, basis: torch.Tensor):
+    """(R, dR) as :func:`se3_dexpm` for any affine basis (e.g. 'CSO'): R is
+    :func:`group_expm`'s, dR the same Frechet derivative (the JAX package
+    takes ``jacfwd`` of its float32 Taylor exponential)."""
+    return group_expm(q, basis), _frechet(q, basis)

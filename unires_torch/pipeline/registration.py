@@ -13,41 +13,46 @@ fused pyramid program, window plans, batched levels, AOT cache):
   grid (the movers onto their union FOV box), and coarser levels are
   smooth + stride decimations of it;
 * the joint histogram uses soft (linear) binning, 64 bins, accumulated in
-  chunks of 65,536 voxels as (64, chunk) x (chunk, 64) products without
-  autograd, each chunk's bin weights made afresh and dropped, so that a
-  level holds no more than one chunk's weights (the JAX optimiser's
-  chunked accumulation, ``unires_tpu/pipeline/registration.py:340-421``);
+  chunks of 65,536 voxels as (64, chunk) x (chunk, 64) products, each
+  chunk's bin weights made afresh and dropped, so that a level holds no
+  more than one chunk's weights (the JAX optimiser's chunked accumulation,
+  ``unires_tpu/pipeline/registration.py:340-421``);
 * its gradient in the group's parameters has two halves: the histogram half,
-  d NMI / d joint by ``torch.autograd`` through the small entropy expression
-  alone, then each chunk's cotangent d NMI / d moved intensities from it,
-  the chunk's fixed weights and the derivative of its moving weights; and
-  the resampler half from the pull_grad kernel contracted to order-<=1
-  spatial moments (the map is affine in the voxel coordinate, as in
-  ``solvers.rigid``);
-* each level runs an adaptive-step preconditioned descent: step 100, x1.4
-  on accept, x0.5 on reject, at most 150 evaluations, stopping at step
-  <= 1e-7 or after 12 evaluations without progress. Each evaluation reads
-  the loss and 12 moments back to the host once.
+  d NMI / d joint written out (:func:`_nmi_and_grad`), then each chunk's
+  cotangent d NMI / d moved intensities from it, the chunk's fixed weights
+  and the derivative of its moving weights; and the resampler half from the
+  pull_grad kernel contracted to order-<=1 spatial moments (the map is
+  affine in the voxel coordinate, as in ``solvers.rigid``);
+* each level runs an adaptive-step preconditioned descent on the device
+  (:class:`NMILevelOpt`, the JAX ``_nmi_opt_cached``): step 100, x1.4 on
+  accept, x0.5 on reject, at most 150 evaluations, stopping at step <= 1e-7
+  or after 12 evaluations without progress. All movers of a level descend
+  together, each at its own pace (the JAX package's ``vmap``); on the card
+  the level is one CUDA graph with a WHILE node, and the host reads it once.
 
-The movers of a level run one after another (the JAX package batches them
-with ``vmap``; the per-mover result is the same). The exponential acts about
-the fixed image's centre (:func:`_fix_centre`): without that the CSO scale
-parameter couples with the translations and the descent crawls.
+The exponential acts about the fixed image's centre (:func:`_fix_centre`):
+without that the CSO scale parameter couples with the translations and the
+descent crawls.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import os
+import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..data import default_atlas
-from ..geometry import (affine_basis, affine_translation, dexpm, expm,
-                        rigid_log, voxel_size)
-from ..ops.lie import compose_maps
+from ..geometry import (affine_basis, affine_translation, expm, rigid_log,
+                        voxel_size)
+from ..ops.lie import compose_maps, group_dexpm, se3_dexpm
 from ..ops.resample import affine_to_M, pull, pull_grad
 from ..solvers.rigid import _centred_coords, _moments
+from ..utils.graph import capture as capture_graph
+from ..utils.graph import cond, forced, while_loop
 from ..utils.host import to_host
 from .nifti import load as nifti_load
 
@@ -180,37 +185,76 @@ def _normalise(v: torch.Tensor, vmin, vmax) -> torch.Tensor:
     return (v - vmin) / torch.clamp(vmax - vmin, min=1e-12) * (_BINS - 1)
 
 
-def _nmi_of_joint(joint: torch.Tensor) -> torch.Tensor:
-    """-(H_f + H_m) / H_joint of an unnormalised (bins, bins) histogram."""
-    joint = joint / torch.clamp(joint.sum(), min=1e-12)
-    pf, pm = joint.sum(dim=1), joint.sum(dim=0)
+def _nmi_and_grad(joint: torch.Tensor):
+    """(NMI, d NMI / d joint) of an unnormalised (bins, bins) histogram,
+    NMI = -(H_f + H_m) / H_joint.
+
+    A captured graph holds no autograd pass, so the derivative is written
+    out: the operations ``torch.autograd.grad`` takes through these
+    expressions, in its order (its sums of the four paths into P
+    included), hence the same float32 roundings: bitwise equal to autograd
+    on the CPU."""
     eps = 1e-12
-    hf = -torch.sum(pf * torch.log(pf + eps))
-    hm = -torch.sum(pm * torch.log(pm + eps))
-    hj = -torch.sum(joint * torch.log(joint + eps))
-    return -(hf + hm) / torch.clamp(hj, min=eps)
+    s = joint.sum()
+    c = torch.clamp(s, min=eps)
+    P = joint / c
+    pf, pm = P.sum(dim=1), P.sum(dim=0)
+    af, am, aj = pf + eps, pm + eps, P + eps
+    lf, lm, lj = torch.log(af), torch.log(am), torch.log(aj)
+    hf = -torch.sum(pf * lf)
+    hm = -torch.sum(pm * lm)
+    hj = -torch.sum(P * lj)
+    num = -(hf + hm)
+    H = torch.clamp(hj, min=eps)
+    L = num / H
+    # backward from dL = 1: the division, the clamp (passes where its
+    # input is at least eps), the negations and the entropies' sums
+    g_num = 1.0 / H
+    g_hj = torch.where(hj >= eps, -((num / H) / H), 0.0)
+    g_sf = g_num  # d L / d sum(pf log(pf + eps)), likewise for pm
+    g_sj = -g_hj
+    g_pf = g_sf * lf + (g_sf * pf) / af
+    g_pm = g_sf * lm + (g_sf * pm) / am
+    gP = (g_sj * lj + (g_sj * P) / aj) + g_pm[None, :] + g_pf[:, None]
+    g_c = (-gP * ((joint / c) / c)).sum()
+    return L, gP / c + torch.where(s >= eps, g_c, 0.0)
 
 
 class _NMILevel:
-    """Loss and gradient of one level's NMI in the parameters of ``group``
-    (six for SE(3), seven for CSO).
+    """Loss and gradient of one mover's NMI at one level, in the parameters
+    of ``group`` (six for SE(3), seven for CSO), on the device: ``vg(q)``
+    returns tensors and reads nothing back.
 
     The histogram and its gradient are taken chunk by chunk: a chunk's
     fixed and moving bin weights ((64, 65536) each) exist only while that
     chunk is summed, so the level's memory is its volumes plus one chunk's
-    weights, whatever its size.
+    weights, whatever its size. The movers of a level share the fixed
+    image's normalised chunks (``like``: another mover's level).
     """
 
-    def __init__(self, fix, mov, pre4, post4, group: str = "SE"):
+    def __init__(self, fix, mov, pre4, post4, group: str = "SE",
+                 like: Optional["_NMILevel"] = None):
+        dev = mov.device
+
+        def f64(a):
+            return torch.as_tensor(np.asarray(a, np.float64),
+                                   dtype=torch.float64, device=dev)
+
         self.fix_dim = tuple(fix.shape)
         self.mov = mov
-        self.pre4, self.post4 = pre4, post4
-        self.basis = affine_basis(group)
-        self.fn = torch.split(_normalise(fix.reshape(-1), fix.min(),
-                                         fix.max()), _CHUNK)
+        self.pre4, self.post4 = f64(pre4), f64(post4)
+        self.basis = f64(affine_basis(group))
+        self.dexpm = se3_dexpm if group == "SE" else group_dexpm
+        if like is None:
+            self.fn = torch.split(_normalise(fix.reshape(-1), fix.min(),
+                                             fix.max()), _CHUNK)
+            self.center = tuple((d - 1) / 2.0 for d in self.fix_dim)
+            self.coords = _centred_coords(self.fix_dim, self.center, dev)
+            self.center_t = f64(self.center)
+        else:
+            self.fn, self.center = like.fn, like.center
+            self.coords, self.center_t = like.coords, like.center_t
         self.mmin, self.mmax = mov.min(), mov.max()
-        self.center = tuple((d - 1) / 2.0 for d in self.fix_dim)
-        self.coords = _centred_coords(self.fix_dim, self.center, fix.device)
 
     def _loss_cotangent(self, movf):
         """(NMI, d NMI / d movf) of the moved intensities ``movf`` (n,)."""
@@ -219,10 +263,7 @@ class _NMILevel:
         for f, m in zip(self.fn, mn):
             part = _soft_weights(f) @ _soft_weights(m).T
             joint = part if joint is None else joint + part
-        with torch.enable_grad():
-            J = joint.requires_grad_()
-            L = _nmi_of_joint(J)
-            gJ, = torch.autograd.grad(L, J)
+        L, gJ = _nmi_and_grad(joint)
         centers = torch.arange(_BINS, dtype=torch.float32, device=movf.device)
         scale = torch.clamp(self.mmax - self.mmin, min=1e-12)
         ct = []
@@ -233,53 +274,214 @@ class _NMILevel:
             dW = torch.where(1.0 - torch.abs(d) >= 0.0, -torch.sgn(d), 0.0)
             g_mn = ((gJ.T @ _soft_weights(f)) * dW).sum(dim=0)
             ct.append(g_mn * (_BINS - 1) / scale)
-        return L.detach(), torch.cat(ct)
+        return L, torch.cat(ct)
 
-    def __call__(self, q):
-        """(loss, gradient (K,)) at q, one read-back."""
-        R, dR = dexpm(q, self.basis)
+    def vg(self, q: torch.Tensor):
+        """(loss, gradient (K,)) at q (K,), float64 tensors on the device."""
+        R, dR = self.dexpm(q, self.basis)
         M = compose_maps(self.pre4, R, self.post4)[0]
         movf = pull(self.mov, M, self.fix_dim).reshape(-1)
         L, ct = self._loss_cotangent(movf)
         pg = pull_grad(self.mov, M, self.fix_dim)
         W = ct.reshape(self.fix_dim)[None] * pg.permute(3, 0, 1, 2)
         mom = _moments(W, self.coords, order=1)  # (3, 4) float64
-        v = to_host(torch.cat([L.double().reshape(1), mom.reshape(-1)]))
-        m0, m1 = v[1:].reshape(3, 4)[:, 0], v[1:].reshape(3, 4)[:, 1:]
         # dL/dq_k = sum_v ct_v pg_v . (B_k v): B_k affine in the voxel
-        # coordinate, so the order-<=1 moments suffice
-        B = np.einsum("ij,kjl,lm->kim", self.pre4, dR, self.post4)
-        ccf = B[:, :3, 3] + B[:, :3, :3] @ np.asarray(self.center)
-        g = ccf @ m0 + np.einsum("kde,de->k", B[:, :3, :3], m1)
-        return float(v[0]), g
+        # coordinate, so the order-<=1 moments suffice; the contractions
+        # are broadcast products and sums (no matrix-vector product in a
+        # conditional node's body)
+        B = self.pre4 @ dR @ self.post4  # (K, 4, 4)
+        lin = B[:, :3, :3]
+        ccf = B[:, :3, 3] + (lin * self.center_t).sum(dim=-1)
+        g = (ccf * mom[:, 0]).sum(dim=-1) + (lin * mom[:, 1:]).sum(dim=(1, 2))
+        return L.double(), g
 
 
-def _descend(vg, q0, iters: int = 150):
-    """Adaptive-step preconditioned descent (the JAX optimiser's loop)."""
-    q = np.asarray(q0, np.float64)
-    scale = _qscale(q.shape[0])
-    loss, g = vg(q)
-    step, it, no_prog = 100.0, 0, 0
-    while it < iters and step > 1e-7 and no_prog < 12:
-        cand = q - step * scale * scale * g
-        new_loss, new_g = vg(cand)
-        accept = new_loss < loss
-        # an evaluation "progresses" if it improves the loss by > 1e-5 rel.
-        prog = accept and (loss - new_loss > 1e-5 * abs(loss))
-        no_prog = 0 if prog else no_prog + 1
-        if accept:
-            q, loss, g = cand, new_loss, new_g
-        step = step * 1.4 if accept else step * 0.5
-        it += 1
-    return q, loss
+# ---------------------------------------------------------------------------
+# The level's descent on the device
+# ---------------------------------------------------------------------------
+
+_STEP0 = 100.0  # first step of the descent
+_MIN_STEP = 1e-7
+_NO_PROG = 12  # evaluations without progress that end a mover's descent
 
 
-def _opt_level(fd, fm, md, mm, q, wc, group: str = "SE", iters: int = 150):
-    """One level's optimisation of mover (md, mm) against (fd, fm)."""
-    pre4 = (np.linalg.inv(np.asarray(mm, np.float64))
-            @ affine_translation(wc))
+@dataclasses.dataclass
+class _LevelState:
+    """The descent's state, per mover (n movers, K parameters), on the
+    device: q, loss, g and step in float64, it and no_prog in int32, live;
+    the candidate and its evaluation; q0 (set before a run) and the turns
+    of the WHILE loop."""
+    q0: torch.Tensor
+    q: torch.Tensor
+    loss: torch.Tensor
+    g: torch.Tensor
+    step: torch.Tensor
+    it: torch.Tensor
+    no_prog: torch.Tensor
+    live: torch.Tensor
+    cand: torch.Tensor
+    new_loss: torch.Tensor
+    new_g: torch.Tensor
+    turns: torch.Tensor
+
+    @classmethod
+    def zeros(cls, n: int, K: int, device) -> "_LevelState":
+        def z(shape, dtype=torch.float64):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return cls(q0=z((n, K)), q=z((n, K)), loss=z(n), g=z((n, K)),
+                   step=z(n), it=z(n, torch.int32),
+                   no_prog=z(n, torch.int32), live=z(n, torch.bool),
+                   cand=z((n, K)), new_loss=z(n), new_g=z((n, K)),
+                   turns=z((), torch.int32))
+
+    def clone(self) -> "_LevelState":
+        return _LevelState(**{f.name: getattr(self, f.name).clone()
+                              for f in dataclasses.fields(self)})
+
+
+class NMILevelOpt:
+    """One level's adaptive-step preconditioned descent for all its movers
+    at once, on the device (the JAX optimiser ``_nmi_opt_cached``, vmapped
+    over the movers): step 100, x1.4 on accept, x0.5 on reject; a mover
+    stops after ``iters`` evaluations, at step <= 1e-7 or after 12
+    evaluations without progress (an improvement of the loss by more than
+    1e-5 relative), and keeps its state while the others go on.
+
+    A run is the initial evaluation of every mover, then a
+    ``utils.graph.while_loop`` on any mover being live, each turn one
+    candidate per live mover (its evaluation a ``utils.graph.cond`` on its
+    own flag), and one host read of q, the losses and the evaluations per
+    mover. On a CUDA device (``capture`` None or True) every branch is
+    warmed up on a copy of the state under ``utils.graph.forced``, then the
+    run is captured as one CUDA graph, its loop a WHILE node and each
+    evaluation an IF node in its body, and replayed once; a failed capture
+    raises. ``capture=False`` runs the same code uncaptured, every decision
+    read on the host (on the CPU always; on the card for the tests and
+    ``chip_smoke.py``).
+    """
+
+    def __init__(self, levels, iters: int = 150,
+                 capture: Optional[bool] = None):
+        self.levels = list(levels)
+        self.dev = dev = self.levels[0].mov.device
+        if capture is None:
+            capture = dev.type == "cuda"
+        if capture and dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {dev}")
+        self.capture = bool(capture)
+        self.iters = int(iters)
+        K = self.levels[0].basis.shape[0]
+        self.scale = torch.as_tensor(_qscale(K), dtype=torch.float64,
+                                     device=dev)
+        self.st = _LevelState.zeros(len(self.levels), K, dev)
+        self.stats = {}
+
+    def _eval(self, i: int, q, loss_out, g_out) -> None:
+        L, g = self.levels[i].vg(q)
+        loss_out.copy_(L)
+        g_out.copy_(g)
+
+    def _live(self, st: _LevelState) -> torch.Tensor:
+        return ((st.it < self.iters) & (st.step > _MIN_STEP)
+                & (st.no_prog < _NO_PROG))
+
+    def turn(self, st: _LevelState) -> None:
+        """One turn of the descent: the JAX optimiser's loop body, per
+        mover."""
+        st.cand.copy_(st.q - st.step[:, None] * self.scale * self.scale
+                      * st.g)
+        for i in range(len(self.levels)):
+            cond(st.live[i], functools.partial(
+                self._eval, i, st.cand[i], st.new_loss[i], st.new_g[i]))
+        live = st.live
+        acc = live & (st.new_loss < st.loss)
+        prog = acc & (st.loss - st.new_loss > 1e-5 * st.loss.abs())
+        st.no_prog.copy_(torch.where(
+            live, torch.where(prog, 0, st.no_prog + 1), st.no_prog))
+        st.q.copy_(torch.where(acc[:, None], st.cand, st.q))
+        st.loss.copy_(torch.where(acc, st.new_loss, st.loss))
+        st.g.copy_(torch.where(acc[:, None], st.new_g, st.g))
+        st.step.copy_(torch.where(
+            live, torch.where(acc, st.step * 1.4, st.step * 0.5), st.step))
+        st.it.add_(live.to(torch.int32))
+        st.turns.add_(1)
+        st.live.copy_(self._live(st))
+
+    def run(self, st: _LevelState) -> None:
+        """The level from ``st.q0``: the initial evaluations, then the
+        descent while any mover is live."""
+        st.q.copy_(st.q0)
+        st.step.fill_(_STEP0)
+        st.it.zero_()
+        st.no_prog.zero_()
+        st.turns.zero_()
+        for i in range(len(self.levels)):
+            self._eval(i, st.q[i], st.loss[i], st.g[i])
+        st.live.copy_(self._live(st))
+        while_loop(lambda: st.live.any(), lambda: self.turn(st))
+
+    def __call__(self, q0):
+        """Run the level from q0 (n, K); returns (q (n, K), loss (n,),
+        evaluations per mover (n,)) as host arrays: the level's one read.
+        ``stats`` holds its figures."""
+        st = self.st
+        syncs0, t0 = to_host.syncs, time.perf_counter()
+        st.q0.copy_(torch.as_tensor(np.asarray(q0, np.float64)))
+        nodes = None
+        if self.capture:
+            scratch = st.clone()
+            with torch.cuda.device(self.dev), forced():
+                self.run(scratch)
+            del scratch
+            with torch.cuda.device(self.dev):
+                graph = capture_graph(lambda: self.run(st))
+            nodes = graph.nodes
+            t1 = time.perf_counter()
+            graph.replay()
+        else:
+            t1 = time.perf_counter()
+            self.run(st)
+        n, K = st.q.shape
+        v = to_host(torch.cat([st.q.reshape(-1), st.loss,
+                               st.it.to(torch.float64),
+                               st.turns.to(torch.float64).reshape(1)]))
+        t2 = time.perf_counter()
+        q = v[:n * K].reshape(n, K)
+        loss = v[n * K:n * K + n]
+        evals = v[n * K + n:n * K + 2 * n].astype(np.int64) + 1
+        self.stats = dict(grid=self.levels[0].fix_dim, movers=n,
+                          evals=evals.tolist(), turns=int(v[-1]),
+                          captured=self.capture, nodes=nodes,
+                          setup_s=t1 - t0, run_s=t2 - t1, s=t2 - t0,
+                          syncs=to_host.syncs - syncs0)
+        return q, loss, evals
+
+
+def make_nmi_level(fix, movers, post4, group: str = "SE", iters: int = 150,
+                   capture: Optional[bool] = None) -> NMILevelOpt:
+    """The level optimiser of ``movers`` [(volume, pre4), ...] against
+    ``fix`` on its grid: :class:`NMILevelOpt` over one :class:`_NMILevel`
+    per mover, sharing the fixed image's chunks."""
+    levels = []
+    for mov, pre4 in movers:
+        levels.append(_NMILevel(fix, mov, pre4, post4, group,
+                                like=levels[0] if levels else None))
+    return NMILevelOpt(levels, iters, capture)
+
+
+def _opt_level(fd, fm, movers, qs, wc, group: str = "SE", iters: int = 150,
+               capture: Optional[bool] = None):
+    """One level's optimisation of all ``movers`` [(md, mm), ...] against
+    (fd, fm) from their parameters ``qs`` (n, K); returns the new qs and
+    the level's figures (:attr:`NMILevelOpt.stats`)."""
     post4 = affine_translation(-wc) @ np.asarray(fm, np.float64)
-    return _descend(_NMILevel(fd, md, pre4, post4, group), q, iters)
+    opt = make_nmi_level(
+        fd, [(md, np.linalg.inv(np.asarray(mm, np.float64))
+              @ affine_translation(wc)) for md, mm in movers],
+        post4, group, iters, capture)
+    q, _, _ = opt(qs)
+    return q, opt.stats
 
 
 def _as_volume(dat, device=None) -> torch.Tensor:
@@ -290,26 +492,32 @@ def _as_volume(dat, device=None) -> torch.Tensor:
 
 
 def _register_pair(fix_dat, fix_mat, mov_dat, mov_mat, q0, levels, fwhm,
-                   maxiter: int = 150, group: str = "SE"):
+                   maxiter: int = 150, group: str = "SE",
+                   stats: Optional[list] = None):
     """Multi-resolution NMI registration of one pair. Returns (q, wc):
     the parameters of the centred exponential and its centre; the world
-    transform is :func:`q_to_world` (q, group, wc)."""
+    transform is :func:`q_to_world` (q, group, wc). ``stats``, when given,
+    receives each level's figures, with its voxel size ``mm`` and
+    ``group``."""
     wc = _fix_centre(fix_dat.shape, fix_mat)
-    q = np.asarray(q0, np.float64)
+    q = np.asarray(q0, np.float64)[None]
     fwhms = ([float(fwhm)] * len(levels) if np.isscalar(fwhm)
              else [float(f) for f in fwhm])
     fix_pyr = _iso_pyramid(fix_dat, fix_mat, levels, fwhms)
     mov_pyr = _iso_pyramid(mov_dat, mov_mat, levels, fwhms)
-    for (fd, fm), (md, mm) in zip(fix_pyr, mov_pyr):
-        q, _ = _opt_level(fd, fm, md, mm, q, wc, group, maxiter)
-    return q, wc
+    for lv, (fd, fm), mov in zip(levels, fix_pyr, mov_pyr):
+        q, lv_stats = _opt_level(fd, fm, [mov], q, wc, group, maxiter)
+        if stats is not None:
+            stats.append(dict(lv_stats, mm=lv, group=group))
+    return q[0], wc
 
 
 def affine_align(imgs: Sequence[Tuple[torch.Tensor, np.ndarray]], fix: int = 0,
                  cost_fun: str = "nmi", group: str = "SE", samp=1,
                  fwhm: float = 7.0, mean_space: bool = False,
                  levels: Sequence[float] = (8.0, 4.0, 2.0),
-                 gauge: str = "fix") -> np.ndarray:
+                 gauge: str = "fix", capture: Optional[bool] = None,
+                 stats: Optional[list] = None) -> np.ndarray:
     """Pairwise rigid alignment of all images to imgs[fix].
 
     Returns mat_a (N, 4, 4): world-space transforms; ``mat <- solve(mat_a[i],
@@ -318,7 +526,10 @@ def affine_align(imgs: Sequence[Tuple[torch.Tensor, np.ndarray]], fix: int = 0,
     (mat_a[fix] = I); ``'mean'`` right-multiplies every mat_a by
     expm(-mean(log mat_a)), so the common frame is the Lie-mean of the
     input frames. The schedule always finishes with a ``samp``-mm level.
-    ``mean_space`` is accepted for the reference's signature and unused.
+    All movers of a level run in one :class:`NMILevelOpt` (on the card one
+    captured graph per level; ``capture=False`` runs it uncaptured), and
+    ``stats``, when given, receives each level's figures, with its voxel
+    size ``mm`` and ``group``. ``mean_space`` is accepted for the reference's signature and unused.
     """
     if cost_fun != "nmi":
         raise NotImplementedError(f"cost_fun={cost_fun!r} (only 'nmi')")
@@ -339,16 +550,17 @@ def affine_align(imgs: Sequence[Tuple[torch.Tensor, np.ndarray]], fix: int = 0,
     fix_pyr = _iso_pyramid(dats[fix], fix_mat, levels, fwhms)
     movers = [i for i in range(N) if i != fix]
     box = _world_box([(imgs[i][1], dats[i].shape) for i in movers])
-    mov_pyrs = {i: _iso_pyramid(dats[i], imgs[i][1], levels, fwhms, box=box)
-                for i in movers}
-    qs = {i: np.zeros(6) for i in movers}
-    for li in range(len(levels)):
+    mov_pyrs = [_iso_pyramid(dats[i], imgs[i][1], levels, fwhms, box=box)
+                for i in movers]
+    qs = np.zeros((len(movers), 6))
+    for li, lv in enumerate(levels):
         fd, fm = fix_pyr[li]
-        for i in movers:
-            md, mm = mov_pyrs[i][li]
-            qs[i], _ = _opt_level(fd, fm, md, mm, qs[i], wc)
-    for i in movers:
-        mat_a[i] = q_to_world(qs[i], "SE", wc)
+        qs, lv_stats = _opt_level(fd, fm, [p[li] for p in mov_pyrs], qs, wc,
+                                  "SE", 150, capture)
+        if stats is not None:
+            stats.append(dict(lv_stats, mm=lv, group="SE"))
+    for k, i in enumerate(movers):
+        mat_a[i] = q_to_world(qs[k], "SE", wc)
     if gauge == "mean":
         basis = affine_basis("SE")
         qbar = np.mean([rigid_log(mat_a[i], basis) for i in range(N)], axis=0)
@@ -366,7 +578,8 @@ _ATLAS_PATH_ENV = "UNIRES_ATLAS"
 
 
 def atlas_align(img: Tuple[torch.Tensor, np.ndarray], rigid: bool = True,
-                atlas_path: Optional[str] = None) -> np.ndarray:
+                atlas_path: Optional[str] = None,
+                stats: Optional[list] = None) -> np.ndarray:
     """Align one image to a T1 atlas (reference _core.py:340-353); returns
     the world transform mat_a, applied as ``mat <- solve(mat_a, mat)``.
 
@@ -375,7 +588,9 @@ def atlas_align(img: Tuple[torch.Tensor, np.ndarray], rigid: bool = True,
     procedural MNI-space template (``unires_torch.data.default_atlas``). It
     is the fixed image, on the image's device; ``rigid`` picks SE(3), else
     CSO = rigid + isotropic scale (the reference's ``atlas_rigid=False``).
-    Every NMI evaluation is one pull and one pull_grad of the image's level.
+    Every NMI evaluation is one pull and one pull_grad of the image's level;
+    each level is one :class:`NMILevelOpt`, on the card one captured
+    graph; ``stats`` as in :func:`affine_align`.
     """
     dat, mat = img
     dat = _as_volume(dat)
@@ -395,7 +610,7 @@ def atlas_align(img: Tuple[torch.Tensor, np.ndarray], rigid: bool = True,
     fwhms = [7.0] * (len(levels) - 2) + [4.0, 4.0]
     q, wc = _register_pair(_as_volume(adat, dat.device), amat, dat, mat,
                            np.zeros(K), levels=tuple(levels),
-                           fwhm=tuple(fwhms), group=group)
+                           fwhm=tuple(fwhms), group=group, stats=stats)
     return q_to_world(q, group, wc)
 
 
