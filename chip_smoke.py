@@ -27,6 +27,10 @@ Phases, each printing its lines:
    map with bounds narrower and wider than the volume, and at the maps and
    bounds of the one-slab spatial steps (the extended slab with its halo of
    zero rows at each end), each bitwise equal to its plain version.
+   Then each kernel's batched launch: B = 3 volumes at the fit's shapes,
+   each at its own map (push: its own plan), in one launch, against three
+   unbatched launches and against the plain version (both bitwise), with
+   its device ms beside that of the three unbatched launches.
 4. Small slices, each fitted on the card and on the CPU (plain versions)
    with the objective traces compared: a pre-aligned 2-channel problem, and
    a misaligned one with co-registration, unified rigid and even/odd
@@ -78,11 +82,19 @@ Phases, each printing its lines:
    hand-written kernels; (c) two subjects (two noise and pose seeds of the
    phantom, the second on the first's grid) through ``fit_batch``, held
    against single fits from copies of the same inits, with the counters
-   reset before the batch and read after it (every subject's chunk is
-   enqueued before any is read); then ``--shard`` with ``--common_output``
-   on two subjects of two 2 mm channels each. In (b) the trace must hold as
-   many pull and push kernel events as the kernels counted launches: the
-   replays of the graph are traced kernel by kernel.
+   reset before the batch and read after it: the two subjects are one
+   stacked chunk, one captured graph read once per chunk, each kernel
+   launched once for both subjects (the batch's launches must be 0.9-1.4x
+   one subject's alone); prints the batch's seconds beside the single
+   fits', its warm-up + capture seconds, graph nodes, host syncs and peak
+   memory; then ``--shard`` with ``--common_output`` on two subjects of
+   two 2 mm channels each. (d) Four subjects (seeds 0-3, one grid) x 4
+   iterations in one batch, uncaptured and captured: the captured traces
+   must equal the uncaptured ones digit for digit and each subject its
+   single fit within the batch tolerance; prints seconds, peak memory and
+   seconds per subject iteration. In (b) the trace must hold as many pull
+   and push kernel events as the kernels counted launches: the replays of
+   the graph are traced kernel by kernel.
 
 9. Converged quality: the misaligned ``bench.py`` workload fitted to its
    tolerance of 1e-4 (coreg, unified rigid, scaling, ``sched_num=3``,
@@ -108,7 +120,8 @@ co-registration, ``launches_atlas`` from phase 6, ``launches_batch`` from
 phase 8's ``fit_batch``, ``launches_converged`` from phase 9,
 ``launches_parallel`` and ``launches_parallel_fov`` (the FOV = true ones)
 summed over phase 10's two spatial steps; ``fov`` the FOV = true cases of
-phase 3), the one before it the card's name and power limit; the last line
+phase 3; ``batch_ms`` and ``unbatched_x3_ms`` phase 3's batched launch of
+three volumes and the three unbatched launches), the one before it the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises: nothing is
 caught.
 """
@@ -191,9 +204,19 @@ INIT_TOL = 1e-5  # card vs CPU init volumes, relative to max|input|
 # volumes relative to their scale, poses (mm / rad) absolute. Not bitwise: a
 # resume recomputes the CG preconditioner's data-term diagonals
 RESUME_TOL = dict(trace=1e-4, vol=1e-3, pose=1e-4)
-# a subject in a batch against the same subject alone (one stream: the same
-# launches in the same order)
+# a subject in a batch against the same subject alone (the batch reduces
+# every subject on its own, on a single fit's shapes)
 BATCH_TOL = dict(trace=1e-6, vol=1e-5)
+# phase 3's batched launches: volumes per launch, and each one's pose (the
+# fit's, then two more)
+KERNEL_BATCH = 3
+BATCH_POSES = ([1.0, -0.7, 0.6, 0.017, -0.012, 0.01],
+               [-0.8, 0.5, -0.4, -0.01, 0.015, -0.008],
+               [0.3, 0.9, -0.2, 0.005, 0.01, 0.02])
+# phase 8c: the batch's launches against one subject's alone (one launch
+# serves both subjects); phase 8d: subjects and iterations
+BATCH_LAUNCH_RATIO = (0.9, 1.4)
+BATCH4_SEEDS, BATCH4_ITERS = (0, 1, 2, 3), 4
 # the quality floor at convergence (PERF.md, section 2)
 PSNR_FLOOR, RATIO_CEIL = 23.5, 0.70
 # the figures of the host-driven loop the fit chunk replaced, on an H100
@@ -550,6 +573,58 @@ def _measure(name, case, inp, Mc, out_dim, kw):
                 bound_by=bound_by, library_ms=lib_ms, library_call=lib_call)
 
 
+def _measure_batch(name, device="cuda"):
+    """Phase 3's batched launch of ``name``: KERNEL_BATCH volumes at the
+    fit's shapes, each at its own map (push: its own plan), in one launch,
+    against the unbatched launches and the plain version (bitwise); its
+    device ms beside that of the unbatched launches. Prints a line and
+    returns the record."""
+    rng = np.random.default_rng(7)
+    B = KERNEL_BATCH
+    pos = []
+    for p in BATCH_POSES[:B]:
+        po = proj_info(DIM_Y, np.eye(4), fit_case()[0].dim_x,
+                       affine_diag([1.0, 1.0, 4.0]),
+                       rigid=affine_matrix_classic(p), prof_ip=2, prof_tp=0)
+        pos.append(obs_dyn_args(po, "super-resolution"))
+    Ms = np.stack([M for M, _ in pos])
+    Md = torch.from_numpy(Ms).to(device)
+    dim_yx = po.dim_yx
+    if name == "push":
+        Minvs = np.stack([Mi for _, Mi in pos])
+        inp = torch.from_numpy(rng.random((B,) + tuple(dim_yx),
+                                          dtype=np.float32)).to(device)
+        plans = push_plan(Md, torch.from_numpy(Minvs).to(device), 1,
+                          tuple(dim_yx), DIM_Y)
+        batched = lambda: push(inp, Md, DIM_Y, Minv=plans)  # noqa: E731
+        one = lambda b: push(inp[b], Md[b], DIM_Y, Minv=plans[b])  # noqa
+        plain = lambda b: push_plain(inp[b], Ms[b], DIM_Y,  # noqa: E731
+                                     Minv=Minvs[b])
+    else:
+        fn, fn_plain = FUNCS[name]
+        inp = torch.from_numpy(rng.random((B,) + DIM_Y,
+                                          dtype=np.float32)).to(device)
+        batched = lambda: fn(inp, Md, dim_yx)  # noqa: E731
+        one = lambda b: fn(inp[b], Md[b], dim_yx)  # noqa: E731
+        plain = lambda b: fn_plain(inp[b], Ms[b], dim_yx)  # noqa: E731
+    unbatched = lambda: [one(b) for b in range(B)]  # noqa: E731
+    got = batched()
+    want = torch.stack(unbatched())
+    ref = torch.stack([plain(b) for b in range(B)])
+    torch.cuda.synchronize()
+    label = f"{name}/batch{B}"
+    scale = float(inp.abs().max())
+    err = max(_max_err(got, want, scale, f"{label} vs unbatched"),
+              _max_err(got, ref, scale, f"{label} vs plain"))
+    require(float(want.abs().max()) > 0.0, f"{label}: result is 0")
+    ms_b, ms_u = _time_ms(batched), _time_ms(unbatched)
+    print(f"[kernels] {label} {tuple(inp.shape)} -> {tuple(got.shape)}: "
+          f"max_abs_err {err:.3e} vs {B} unbatched launches and vs plain | "
+          f"batched {ms_b:.4f} ms, {B} unbatched {ms_u:.4f} ms "
+          f"({ms_b / ms_u:.3f})")
+    return dict(batch_ms=ms_b, unbatched_x3_ms=ms_u)
+
+
 def _adjoint(cases, tag, **fov):
     """<pull u, v> = <u, push v> through the kernels at the fit's map."""
     by_case = {(c[0], c[1]): c[2:] for c in cases}
@@ -587,6 +662,8 @@ def phase_kernels(device="cuda"):
     for c in cases:
         rec[c[0]].setdefault("fov", {})[c[1]] = _measure(*c)
     _adjoint(cases, "fov_narrow", fov=FOV_NARROW)
+    for name in ("pull", "push", "pull_grad"):
+        rec[name].update(_measure_batch(name, device))
     return rec
 
 
@@ -827,8 +904,9 @@ def _check_level_syncs(tag, rec):
 def _timed_captures(record):
     """Wrap ``FitChunk._capture`` (the warm-up of every branch and the
     capture of one iteration) so that its seconds, the device's included,
-    add up in ``record['s']`` and its calls in ``record['n']``. Returns the
-    original, to be put back."""
+    add up in ``record['s']``, its calls in ``record['n']`` and the last
+    graph's node count lands in ``record['nodes']``. Returns the original,
+    to be put back."""
     fn = fitloop.FitChunk._capture
 
     def timed(self, *args):
@@ -838,6 +916,7 @@ def _timed_captures(record):
         torch.cuda.synchronize()
         record["s"] = record.get("s", 0.0) + time.perf_counter() - t0
         record["n"] = record.get("n", 0) + 1
+        record["nodes"] = self.graph.nodes
 
     fitloop.FitChunk._capture = timed
     return fn
@@ -1293,10 +1372,55 @@ def phase_trace(init, tmp):
             f"kernels: events {named}, launches {launches}")
 
 
-def phase_batch(init0, full0, tmp, device="cuda", dim=DIM_Y, max_iter=8):
-    """8c: two subjects through ``fit_batch`` against their single fits."""
+def _batch_fit(inits, **kw):
+    """``fit_batch`` of deep copies of ``inits`` (subject 0's settings,
+    ``kw`` set on them) with the counters set to 0 just before it and read
+    just after: (xs, results, record) with the seconds, launches, host
+    syncs, peak memory, warm-up + capture seconds and graph nodes."""
     from unires_torch.parallel.fit_batch import fit_batch
 
+    capture = kw.pop("capture", None)
+    xs, ys, setts = (list(t) for t in zip(*copy.deepcopy(inits)))
+    for k, v in kw.items():
+        setattr(setts[0], k, v)
+    cap = {}
+    wrapped = _timed_captures(cap)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    syncs0 = to_host.syncs
+    t0 = time.perf_counter()
+    res = fit_batch(xs, ys, setts[0], capture=capture)
+    torch.cuda.synchronize()
+    rec = dict(s=time.perf_counter() - t0, launches=_counts(),
+               syncs=to_host.syncs - syncs0,
+               peak=torch.cuda.max_memory_allocated(),
+               setup_s=cap.get("s", 0.0), captures=cap.get("n", 0),
+               nodes=cap.get("nodes"))
+    fitloop.FitChunk._capture = wrapped
+    return xs, res, rec
+
+
+def _against_single(tag, b, xb, resb, xw, yw, objw, nw):
+    """A subject of a batch against its single fit: n_iter equal, the trace
+    and volumes within BATCH_TOL. Prints a line."""
+    yb, _, jtvb, objb, nb = resb
+    require(nb == nw, f"{tag} subject {b}: n_iter {nb} != {nw}")
+    require(bool(torch.isfinite(jtvb).all()), f"{tag} subject {b}: jtv")
+    rel = _rel_trace(objb[:, 0], objw[:, 0])
+    dvol = _vol_diff(yb, yw)
+    dq = float(np.abs(_poses(xb) - _poses(xw)).max())
+    print(f"[{tag}] subject {b} in the batch vs alone: nll "
+          f"{objb[:, 0].tolist()} | equal digit for digit "
+          f"{np.array_equal(objb, objw)} | rel {rel:.3e} | volumes "
+          f"{dvol:.3e} of scale | max |dq| {dq:.3e}")
+    require(rel <= BATCH_TOL["trace"], f"{tag} subject {b}: trace rel {rel}")
+    require(dvol <= BATCH_TOL["vol"], f"{tag} subject {b}: volumes {dvol}")
+
+
+def phase_batch(init0, full0, tmp, device="cuda", dim=DIM_Y, max_iter=8):
+    """8c: two subjects through ``fit_batch`` (one stacked chunk) against
+    their single fits. Returns the batch's launches and subject 1's init."""
     t0 = time.perf_counter()
     y0 = init0[1]
     init1 = _bench_init(device, dim, max_iter, seed=1,
@@ -1304,53 +1428,75 @@ def phase_batch(init0, full0, tmp, device="cuda", dim=DIM_Y, max_iter=8):
     torch.cuda.synchronize()
     print(f"[batch] subject 1 (seed 1) init on subject 0's grid "
           f"{time.perf_counter() - t0:.2f} s")
-    xs, ys, setts = (list(t) for t in zip(*copy.deepcopy((init0, init1))))
-    setts[0].do_print = 1  # the line per round
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_counts()
-    syncs0 = to_host.syncs
-    t0 = time.perf_counter()
-    res = fit_batch(xs, ys, setts[0])
-    torch.cuda.synchronize()
-    s_batch = time.perf_counter() - t0
-    launches = _counts()
-    syncs = to_host.syncs - syncs0
-    peak = torch.cuda.max_memory_allocated()
+    xs, res, rec = _batch_fit((init0, init1), do_print=1)
+    launches = rec["launches"]
 
     _reset_counts()
     x1, y1, _, obj1, n1, s_single = _fit_copy(init1, max_iter=max_iter)
     single = _counts()
     xf0, yf0, obj0, s_full0 = full0
-    for b, (xb, (yb, _, jtvb, objb, nb), xw, yw, objw, nw) in enumerate((
-            (xs[0], res[0], xf0, yf0, obj0, max_iter),
-            (xs[1], res[1], x1, y1, obj1, n1))):
-        require(nb == nw == max_iter, f"subject {b}: n_iter {nb} != {nw}")
-        require(bool(torch.isfinite(jtvb).all()), f"subject {b}: jtv")
-        rel = _rel_trace(objb[:, 0], objw[:, 0])
-        dvol = _vol_diff(yb, yw)
-        dq = float(np.abs(_poses(xb) - _poses(xw)).max())
-        print(f"[batch] subject {b} in the batch vs alone: nll "
-              f"{objb[:, 0].tolist()} | equal digit for digit "
-              f"{np.array_equal(objb, objw)} | rel {rel:.3e} | volumes "
-              f"{dvol:.3e} of scale | max |dq| {dq:.3e}")
-        require(rel <= BATCH_TOL["trace"], f"subject {b}: trace rel {rel}")
-        require(dvol <= BATCH_TOL["vol"], f"subject {b}: volumes {dvol}")
+    for b, (xw, yw, objw) in enumerate(((xf0, yf0, obj0), (x1, y1, obj1))):
+        require(len(objw) == max_iter, f"subject {b}: single n_iter")
+        _against_single("batch", b, xs[b], res[b], xw, yw, objw, max_iter)
     require(not np.array_equal(res[0][3], res[1][3]),
             "the two subjects gave one trace")
     ratio = {k: launches[k] / max(single[k], 1) for k in launches}
-    print(f"[batch] 2 subjects x {max_iter} iterations {s_batch:.3f} s | "
+    chunks = -(-max_iter // min(max_iter, int(init0[2].chunk_iters)))
+    print(f"[batch] 2 subjects x {max_iter} iterations {rec['s']:.3f} s | "
           f"subject 1 alone {s_single:.3f} s, subject 0 alone {s_full0:.3f} s"
-          f" | batch / sum of singles {s_batch / (s_single + s_full0):.3f} | "
-          f"host syncs {syncs} ({syncs / (2 * max_iter):.1f} per subject "
-          f"iteration) | peak mem {peak / 2 ** 30:.3f} GiB | launches "
-          f"{launches}, subject 1 alone {single}, ratio "
+          f" | batch / sum of singles "
+          f"{rec['s'] / (s_single + s_full0):.3f} | warm-up + capture "
+          f"{rec['setup_s']:.3f} s ({rec['captures']} captures, "
+          f"{rec['nodes']} graph nodes) | host syncs {rec['syncs']} "
+          f"({chunks} chunks, {rec['captures']} captures) | peak mem "
+          f"{rec['peak'] / 2 ** 30:.3f} GiB | launches {launches}, subject "
+          f"1 alone {single}, ratio "
           f"{ {k: round(v, 2) for k, v in ratio.items()} }")
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the batch never launched: {launches}")
-    require(all(1.7 <= v <= 2.3 for v in ratio.values()),
-            f"batch launches are not about twice a subject's: {ratio}")
-    return launches
+    require(rec["captures"] == 1, f"{rec['captures']} captures for one batch")
+    require(rec["syncs"] <= chunks + rec["captures"],
+            f"{rec['syncs']} host syncs for {chunks} chunks")
+    lo, hi = BATCH_LAUNCH_RATIO
+    require(all(lo <= v <= hi for v in ratio.values()),
+            f"batch launches are not {lo}-{hi}x one subject's: {ratio}")
+    return launches, init1
+
+
+def phase_batch4(init0, init1, device="cuda", dim=DIM_Y):
+    """8d: four subjects in one batch, uncaptured and captured, against
+    each other and against their single fits."""
+    iters = BATCH4_ITERS
+    y0 = init0[1]
+    t0 = time.perf_counter()
+    inits = [init0, init1] + [
+        _bench_init(device, dim, iters, seed=s,
+                    force_y_space=(y0[0].mat, y0[0].dim))
+        for s in BATCH4_SEEDS[2:]]
+    torch.cuda.synchronize()
+    print(f"[batch4] inits of subjects {BATCH4_SEEDS[2:]} on subject 0's "
+          f"grid {time.perf_counter() - t0:.2f} s")
+    B = len(inits)
+    singles = [_fit_copy(i, max_iter=iters) for i in inits]
+    _, res_u, rec_u = _batch_fit(inits, max_iter=iters, capture=False)
+    xs, res, rec = _batch_fit(inits, max_iter=iters)
+    same = [np.array_equal(r[3], u[3]) for r, u in zip(res, res_u)]
+    print(f"[batch4] captured vs uncaptured traces equal digit for digit: "
+          f"{same}")
+    require(all(same), "a captured batch trace differs from the uncaptured")
+    for b, (x1, y1, _, obj1, n1, _) in enumerate(singles):
+        _against_single("batch4", b, xs[b], res[b], x1, y1, obj1, n1)
+    s_sum = sum(r[-1] for r in singles)
+    print(f"[batch4] {B} subjects x {iters} iterations {rec['s']:.3f} s "
+          f"({rec['s'] / (B * iters):.4f} s per subject iteration) | "
+          f"uncaptured {rec_u['s']:.3f} s | singles "
+          f"{[round(r[-1], 3) for r in singles]} s, batch / sum "
+          f"{rec['s'] / s_sum:.3f} | warm-up + capture "
+          f"{rec['setup_s']:.3f} s ({rec['nodes']} graph nodes) | host "
+          f"syncs {rec['syncs']} | peak mem {rec['peak'] / 2 ** 30:.3f} GiB "
+          f"| launches {rec['launches']}")
+    require(all(v > 0 for v in rec["launches"].values()),
+            f"a kernel of the batch of 4 never launched: {rec['launches']}")
 
 
 def phase_shard_cli(tmp):
@@ -1397,8 +1543,9 @@ def phase_long_runs(tmp, device="cuda", dim=DIM_Y, max_iter=8):
           f"{time.perf_counter() - t0:.2f} s")
     full0 = phase_resume(init0, tmp, max_iter)
     phase_trace(init0, tmp)
-    launches = phase_batch(init0, full0, tmp, device, dim, max_iter)
+    launches, init1 = phase_batch(init0, full0, tmp, device, dim, max_iter)
     phase_shard_cli(tmp)
+    phase_batch4(init0, init1, device, dim)
     return launches
 
 

@@ -1,0 +1,163 @@
+// Other mappings of a batched launch of pull, push and pull_grad, timed
+// against the port's by scripts/cuda_batch_variants.py. Each computes every
+// output with the port's tile code (pull_tile, push_target, pull_grad_tile),
+// so each must equal the unbatched launches to the bit:
+//   zfold  the batch folded into the grid's z with the volumes slowest:
+//          block z = b * zblocks + (x row block), b split off by a division
+//          (the port's first batched kernels);
+//   inter  the same with the volumes fastest: block z = (x row block) * B
+//          + b, so the blocks of one position in the B volumes run side by
+//          side.
+// The port's batched kernels run one volume's launch grid, each thread its
+// output position in every volume in turn. This file includes the port's
+// source, so the variants share its helpers.
+
+#include "../unires_torch/csrc/resample.cu"
+
+namespace {
+
+template <int ORDER>
+__global__ void __launch_bounds__(kLanesZ * kRowsY)
+    pull_zfold(const float* __restrict__ vol, float* __restrict__ out,
+               const float* __restrict__ mp, int nx, int ny, int nz, int ox,
+               int oy, int oz, int batch, long long vstride) {
+  const int zblocks = (ox + kRowsX - 1) / kRowsX;
+  const int b = blockIdx.z / zblocks;
+  pull_tile<ORDER, false>(vol + b * vstride,
+                          out + b * ((long long)ox * oy * oz), mp + 12 * b,
+                          nx, ny, nz, ox, oy, oz, Box(),
+                          blockIdx.z - b * zblocks);
+}
+
+template <int ORDER>
+__global__ void __launch_bounds__(kLanesZ * kRowsY)
+    pull_inter(const float* __restrict__ vol, float* __restrict__ out,
+               const float* __restrict__ mp, int nx, int ny, int nz, int ox,
+               int oy, int oz, int batch, long long vstride) {
+  const int zb = blockIdx.z / batch;
+  const int b = blockIdx.z - zb * batch;
+  pull_tile<ORDER, false>(vol + b * vstride,
+                          out + b * ((long long)ox * oy * oz), mp + 12 * b,
+                          nx, ny, nz, ox, oy, oz, Box(), zb);
+}
+
+template <int ORDER>
+__global__ void __launch_bounds__(kLanesZ * kRowsY)
+    push_zfold(const float* __restrict__ vals, float* __restrict__ out,
+               const float* __restrict__ plan, int sx, int sy, int sz, int tx,
+               int ty, int tz, int batch, long long vstride) {
+  const int b = blockIdx.z / tx;
+  push_target<ORDER, false>(vals + b * vstride,
+                            out + b * ((long long)tx * ty * tz),
+                            plan + 32 * b, sx, sy, sz, tx, ty, tz, -1, -1, -1,
+                            Box(), blockIdx.z - b * tx);
+}
+
+template <int ORDER>
+__global__ void __launch_bounds__(kLanesZ * kRowsY)
+    push_inter(const float* __restrict__ vals, float* __restrict__ out,
+               const float* __restrict__ plan, int sx, int sy, int sz, int tx,
+               int ty, int tz, int batch, long long vstride) {
+  const int vi = blockIdx.z / batch;
+  const int b = blockIdx.z - vi * batch;
+  push_target<ORDER, false>(vals + b * vstride,
+                            out + b * ((long long)tx * ty * tz),
+                            plan + 32 * b, sx, sy, sz, tx, ty, tz, -1, -1, -1,
+                            Box(), vi);
+}
+
+__global__ void __launch_bounds__(kGradLanesZ * kGradRowsY)
+    pull_grad_zfold(const float* __restrict__ vol, float* __restrict__ out,
+                    const float* __restrict__ mp, int nx, int ny, int nz,
+                    int ox, int oy, int oz, int batch, long long vstride) {
+  const int zblocks = (ox + kRowsX - 1) / kRowsX;
+  const int b = blockIdx.z / zblocks;
+  pull_grad_tile<kGradLanesZ, kGradRowsY, kRowsX>(
+      vol + b * vstride, out + b * (3LL * ox * oy * oz),
+      load_map_dev(mp + 12 * b), nx, ny, nz, ox, oy, oz,
+      blockIdx.z - b * zblocks);
+}
+
+__global__ void __launch_bounds__(kGradLanesZ * kGradRowsY)
+    pull_grad_inter(const float* __restrict__ vol, float* __restrict__ out,
+                    const float* __restrict__ mp, int nx, int ny, int nz,
+                    int ox, int oy, int oz, int batch, long long vstride) {
+  const int zb = blockIdx.z / batch;
+  const int b = blockIdx.z - zb * batch;
+  pull_grad_tile<kGradLanesZ, kGradRowsY, kRowsX>(
+      vol + b * vstride, out + b * (3LL * ox * oy * oz),
+      load_map_dev(mp + 12 * b), nx, ny, nz, ox, oy, oz, zb);
+}
+
+}  // namespace
+
+extern "C" {
+
+// variant 0: zfold, 1: inter; arguments as unires_pull_batch's
+int variant_pull(int variant, const float* vol, float* out, const float* m,
+                 int nx, int ny, int nz, int ox, int oy, int oz, int order,
+                 int batch, long long vstride, void* stream) {
+  const int zb = (ox + kRowsX - 1) / kRowsX;
+  const dim3 block(kLanesZ, kRowsY);
+  const dim3 grid((unsigned)((oz + kLanesZ - 1) / kLanesZ),
+                  (unsigned)((oy + kRowsY - 1) / kRowsY),
+                  (unsigned)(zb * batch));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 0 && order == 0)
+    pull_zfold<0><<<grid, block, 0, s>>>(vol, out, m, nx, ny, nz, ox, oy, oz,
+                                        batch, vstride);
+  else if (variant == 0)
+    pull_zfold<1><<<grid, block, 0, s>>>(vol, out, m, nx, ny, nz, ox, oy, oz,
+                                        batch, vstride);
+  else if (order == 0)
+    pull_inter<0><<<grid, block, 0, s>>>(vol, out, m, nx, ny, nz, ox, oy, oz,
+                                         batch, vstride);
+  else
+    pull_inter<1><<<grid, block, 0, s>>>(vol, out, m, nx, ny, nz, ox, oy, oz,
+                                         batch, vstride);
+  return (int)cudaGetLastError();
+}
+
+int variant_push(int variant, const float* vals, float* out,
+                 const float* plan, int sx, int sy, int sz, int tx, int ty,
+                 int tz, int order, int batch, long long vstride,
+                 void* stream) {
+  const dim3 block(kLanesZ, kRowsY);
+  const dim3 grid((unsigned)((tz + kLanesZ - 1) / kLanesZ),
+                  (unsigned)((ty + kRowsY - 1) / kRowsY),
+                  (unsigned)(tx * batch));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 0 && order == 0)
+    push_zfold<0><<<grid, block, 0, s>>>(vals, out, plan, sx, sy, sz, tx, ty,
+                                        tz, batch, vstride);
+  else if (variant == 0)
+    push_zfold<1><<<grid, block, 0, s>>>(vals, out, plan, sx, sy, sz, tx, ty,
+                                        tz, batch, vstride);
+  else if (order == 0)
+    push_inter<0><<<grid, block, 0, s>>>(vals, out, plan, sx, sy, sz, tx, ty,
+                                         tz, batch, vstride);
+  else
+    push_inter<1><<<grid, block, 0, s>>>(vals, out, plan, sx, sy, sz, tx, ty,
+                                         tz, batch, vstride);
+  return (int)cudaGetLastError();
+}
+
+int variant_pull_grad(int variant, const float* vol, float* out,
+                      const float* m, int nx, int ny, int nz, int ox, int oy,
+                      int oz, int batch, long long vstride, void* stream) {
+  const int zb = (ox + kRowsX - 1) / kRowsX;
+  const dim3 block(kGradLanesZ, kGradRowsY);
+  const dim3 grid((unsigned)((oz + kGradLanesZ - 1) / kGradLanesZ),
+                  (unsigned)((oy + kGradRowsY - 1) / kGradRowsY),
+                  (unsigned)(zb * batch));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 0)
+    pull_grad_zfold<<<grid, block, 0, s>>>(vol, out, m, nx, ny, nz, ox, oy, oz,
+                                          batch, vstride);
+  else
+    pull_grad_inter<<<grid, block, 0, s>>>(vol, out, m, nx, ny, nz, ox, oy,
+                                           oz, batch, vstride);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

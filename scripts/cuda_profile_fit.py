@@ -1,6 +1,7 @@
 """Profile steady iterations of the misaligned bench fit on one CUDA card.
 
     python3 scripts/cuda_profile_fit.py [--first 5] [--count 3] [--uncaptured]
+                                        [--batch B]
 
 Builds the bench.py workload as ``chip_smoke.py`` phase 5 does (3 channels,
 181x217x181, 4 mm slices, rigid misalignment, even/odd scaling; coreg,
@@ -12,7 +13,10 @@ the host included. ``--uncaptured`` runs the chunk without a graph, each
 decision read on the host. Prints the window's wall time, the device's busy
 time (union of the device events' intervals), its idle share, host syncs
 per iteration, and the device time by kernel group, with launches and ms
-per launch for the port's three kernels.
+per launch for the port's three kernels. ``--batch B`` profiles B subjects
+(the workload at seeds 0 to B - 1, all on subject 0's grid) as one stacked
+chunk (``parallel.fit_batch.BatchRun``), as ``fit_batch`` runs a device's
+share, and also prints the graph's node count.
 """
 import argparse
 import importlib
@@ -21,6 +25,7 @@ import time
 from collections import defaultdict
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -35,8 +40,10 @@ from unires_torch.utils.host import to_host  # noqa: E402
 fit_mod = importlib.import_module("unires_torch.pipeline.fit")
 
 # kernel name fragment -> group, first match wins
-GROUPS = (("push_kernel", "push kernel"),
-          ("pull_grad_kernel", "pull_grad kernel"), ("pull_kernel", "pull kernel"),
+GROUPS = (("push_kernel", "push kernel"), ("push_batch_kernel", "push kernel"),
+          ("pull_grad_kernel", "pull_grad kernel"),
+          ("pull_grad_batch_kernel", "pull_grad kernel"),
+          ("pull_kernel", "pull kernel"), ("pull_batch_kernel", "pull kernel"),
           ("CatArrayBatchedCopy", "torch.cat"), ("gemm", "matmuls"),
           ("reduce", "reductions"), ("Reduce", "reductions"),
           ("copy", "copies"), ("Memcpy", "copies"), ("Memset", "copies"))
@@ -54,30 +61,50 @@ def main():
     ap.add_argument("--first", type=int, default=5)
     ap.add_argument("--count", type=int, default=3)
     ap.add_argument("--uncaptured", action="store_true")
+    ap.add_argument("--batch", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the profile needs a GPU")
     print(f"[profile] {chip_smoke.phase_device()} | "
-          f"{'uncaptured' if args.uncaptured else 'captured'}")
-    _, _, chans = chip_smoke._bench_workload("cuda", chip_smoke.DIM_Y, True)
-    x, y, sett = unires_torch.init(chans, unires_torch.Settings(
-        device="cuda", vx=1.0, do_print=0, write_out=False, tolerance=0,
-        max_iter=args.first + args.count, sched_num=3, reg_scl=4.0,
-        do_coreg=True, unified_rigid=True, scaling=True))
+          f"{'uncaptured' if args.uncaptured else 'captured'}"
+          f"{f' | batch of {args.batch}' if args.batch else ''}")
+    n_iter = args.first + args.count
+    inits = []
+    for seed in range(max(args.batch, 1)):
+        force = (None if not inits else
+                 (inits[0][1][0].mat, inits[0][1][0].dim))
+        inits.append(chip_smoke._bench_init("cuda", chip_smoke.DIM_Y,
+                                            n_iter, seed=seed,
+                                            force_y_space=force))
+    cap = {}
+    chip_smoke._timed_captures(cap)
+    if args.batch:
+        from unires_torch.parallel.fit_batch import BatchRun
 
-    run = fit_mod.FitRun(x, y, sett, capture=not args.uncaptured)
-    run.step(args.first)
+        xs, ys, setts = (list(t) for t in zip(*inits))
+        run = BatchRun(xs, ys, fit_mod.get_sched(
+            sum(len(xc) for xc in xs[0]), setts[0]),
+            capture=not args.uncaptured)
+        run.step(args.first)
+    else:
+        run = fit_mod.FitRun(*inits[0], capture=not args.uncaptured)
+        run.step(args.first)
+    if cap:
+        print(f"[profile] warm-up + capture {cap['s']:.3f} s, graph nodes "
+              f"{cap['nodes']}")
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     window = {}
     torch.cuda.synchronize()
     prof.start()  # the window excludes start/stop
     window.update(t0=time.perf_counter(), s0=to_host.syncs)
-    rows = run.step(args.count)
+    n0 = run.state.host["n_iter"]
+    run.step(args.count)
     torch.cuda.synchronize()
     window.update(t1=time.perf_counter(), s1=to_host.syncs)
     prof.stop()
-    if len(rows) != args.count:
-        raise RuntimeError(f"the profiled chunk ran {len(rows)} iterations")
+    done = np.min(np.asarray(run.state.host["n_iter"]) - n0)
+    if done != args.count:
+        raise RuntimeError(f"the profiled chunk ran {done} iterations")
 
     wall = 1e3 * (window["t1"] - window["t0"])
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]

@@ -18,7 +18,9 @@ it (ys 2e-3 of scale, z and w 1e-3, objective rtol 2e-3); maps read from
 device memory against staged host maps, a captured graph and its IF and
 WHILE nodes against eager launches, the captured fit chunk against the
 uncaptured one, and co-registration with its levels captured against the
-same levels uncaptured, all exact.
+same levels uncaptured, all exact; each kernel's batched launch against
+its unbatched launches and its plain version, and a captured batch of
+subjects against the same batch uncaptured, exact too.
 """
 import copy
 
@@ -447,6 +449,105 @@ def test_captured_chunk_matches_uncaptured(cuda):
     np.testing.assert_array_equal(a.state.host["scl"], b.state.host["scl"])
     assert np.abs(a.state.host["q"]).max() > 0.05  # the poses moved
     assert torch.equal(a.state.ys, b.state.ys)
+
+
+def _batch_maps(B, seed):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(B):
+        lin = np.eye(3) + 0.08 * rng.standard_normal((3, 3))
+        out.append(np.hstack([lin, rng.uniform(-1.5, 1.5, (3, 1))]))
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("name", ["pull", "push", "pull_grad"])
+@pytest.mark.parametrize("stride", ["strided", "zero"])
+def test_batched_launch_matches_unbatched(cuda, name, order, stride):
+    """One launch over 3 volumes, each at its own map (push: its own plan),
+    against 3 unbatched launches and the plain version, bitwise; the
+    volumes a strided channel of a stack, or one volume read 3 times
+    (batch stride 0). One count per launch."""
+    if name == "pull_grad" and order == 0:
+        pytest.skip("pull_grad is trilinear only")
+    B, out_dim = 3, (13, 16, 18)
+    Ms = _batch_maps(B, 11)
+    Md = torch.from_numpy(Ms).to(cuda)
+    src = out_dim if name == "push" else IN_DIM
+    if stride == "strided":
+        vols = _vol((B, 2) + src, 12, cuda)[:, 1]
+    else:
+        vols = _vol(src, 12, cuda).expand((B,) + src)
+    kw = {} if name == "pull_grad" else dict(order=order)
+    fn = getattr(tr, name)
+    if name == "push":
+        plans = tr.push_plan(Md, None, order, out_dim, IN_DIM)
+        n0 = fn.launches
+        got = fn(vols, Md, IN_DIM, Minv=plans, **kw)
+        assert fn.launches == n0 + 1
+        want = torch.stack([fn(vols[b], Md[b], IN_DIM, Minv=plans[b], **kw)
+                            for b in range(B)])
+        plain = tr.push_plain(vols, Ms, IN_DIM, Minv=plans, **kw)
+    else:
+        n0 = fn.launches
+        got = fn(vols, Md, out_dim, **kw)
+        assert fn.launches == n0 + 1
+        want = torch.stack([fn(vols[b], Md[b], out_dim, **kw)
+                            for b in range(B)])
+        plain = getattr(tr, f"{name}_plain")(vols, Ms, out_dim, **kw)
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want) and torch.equal(got, plain)
+
+
+def test_captured_batch_matches_uncaptured(cuda):
+    """Two subjects (a centre crop of the brain phantom at two noise and
+    pose seeds, on one grid) through ``fit_batch`` captured and uncaptured:
+    equal traces, poses, scales and volumes; the captured batch waits for
+    the host once before its capture and reads it once per chunk."""
+    from unires_torch.parallel.fit_batch import fit_batch
+    from unires_torch.utils.host import to_host
+
+    vol = brain_phantom(seed=0)[66:114, 80:136, 66:114]
+    inits = []
+    for seed in (4, 5):
+        rng = np.random.default_rng(seed)
+        chans = []
+        for ax in (2, 0):
+            vx = [1.0, 1.0, 1.0]
+            vx[ax] = 4.0
+            dim_x = list(vol.shape)
+            dim_x[ax] = int(np.ceil(vol.shape[ax] / 4.0))
+            rp = (list(rng.uniform(-1.2, 1.2, 3))
+                  + list(rng.uniform(-0.015, 0.015, 3)))
+            po = proj_info(vol.shape, np.eye(4), tuple(dim_x),
+                           affine_diag(vx), rigid=affine_matrix_classic(rp),
+                           prof_ip=2, prof_tp=0, scl=0.1)
+            x = unires_torch.proj_apply("A", torch.from_numpy(vol), po,
+                                        "super-resolution").numpy()
+            chans.append([x + rng.normal(0.0, 75.0, x.shape).astype(
+                np.float32), affine_diag(vx)])
+        force = None if not inits else (inits[0][1][0].mat,
+                                        inits[0][1][0].dim)
+        inits.append(unires_torch.init([chans], unires_torch.Settings(
+            device="cuda", vx=1.0, do_coreg=False, unified_rigid=True,
+            scaling=True, do_print=0, max_iter=6, chunk_iters=4,
+            tolerance=0, write_out=False, force_y_space=force)))
+    runs = {}
+    for captured in (True, False):
+        xs, ys, ss = (list(t) for t in zip(*copy.deepcopy(inits)))
+        n0 = to_host.syncs
+        res = fit_batch(xs, ys, ss[0], capture=captured)
+        runs[captured] = (xs, res, to_host.syncs - n0)
+    (xa, a, reads_a), (xb, b, reads_b) = runs[True], runs[False]
+    assert reads_a == 1 + 2 and reads_b > 2 * 6  # two chunks: 4 + 2
+    for sa, sb, pa, pb in zip(a, b, xa, xb):
+        np.testing.assert_array_equal(sa[3], sb[3])
+        qa = np.stack([o.rigid_q for xc in pa for o in xc])
+        qb = np.stack([o.rigid_q for xc in pb for o in xc])
+        np.testing.assert_array_equal(qa, qb)
+        assert all(torch.equal(ca.dat, cb.dat) for ca, cb in zip(sa[0],
+                                                                 sb[0]))
+    assert not np.array_equal(a[0][3], a[1][3])
 
 
 def test_while_node_runs_until_its_predicate_fails(cuda):

@@ -220,18 +220,29 @@ __device__ __forceinline__ void gather_corners(
 // it). The fov override is the instantiation FOV = true, which tests every
 // sample point against the caller's bounds (gather_corners); the default
 // instantiation is the kernel without it, instruction for instruction.
+//
+// The batched launch (pull_batch_kernel) covers B volumes with one volume's
+// launch grid: each thread computes its output position in volume 0, 1, ...
+// in turn, volume b at vol + b * vstride, its map at mp + 12 b and its
+// output at out + b * ox * oy * oz. Each output is computed by the same tile
+// code (pull_tile) as in the unbatched launch, so the two agree to the bit;
+// the unbatched kernel is the old one, instruction for instruction. Folding
+// the batch into the grid's z instead (a block index split by a division)
+// measured slower, with the volumes slowest or fastest
+// (scripts/cuda_batch_variants.py reruns both).
 // ---------------------------------------------------------------------------
 template <int ORDER, bool FOV>
-__global__ void __launch_bounds__(kLanesZ * kRowsY)
-    pull_kernel(const float* __restrict__ vol, float* __restrict__ out,
-                const float* __restrict__ mp, int nx, int ny, int nz, int ox,
-                int oy, int oz, Box fov, unsigned long long* cnt) {
-  count_launch<FOV>(cnt);
+__device__ __forceinline__ void pull_tile(const float* __restrict__ vol,
+                                          float* __restrict__ out,
+                                          const float* __restrict__ mp,
+                                          int nx, int ny, int nz, int ox,
+                                          int oy, int oz, const Box& fov,
+                                          int zb) {
   const Map34 M = load_map_dev(mp);
   const int j = blockIdx.y * kRowsY + threadIdx.y;
   const int k = blockIdx.x * kLanesZ + threadIdx.x;
   if (j >= oy || k >= oz) return;
-  const int i0 = blockIdx.z * kRowsX;
+  const int i0 = zb * kRowsX;
   float g[kRowsX][3];
 #pragma unroll
   for (int q = 0; q < kRowsX; ++q)
@@ -278,6 +289,29 @@ __global__ void __launch_bounds__(kLanesZ * kRowsY)
     if (i0 + q < ox) out[((long long)(i0 + q) * oy + j) * oz + k] = res[q];
 }
 
+template <int ORDER, bool FOV>
+__global__ void __launch_bounds__(kLanesZ * kRowsY)
+    pull_kernel(const float* __restrict__ vol, float* __restrict__ out,
+                const float* __restrict__ mp, int nx, int ny, int nz, int ox,
+                int oy, int oz, Box fov, unsigned long long* cnt) {
+  count_launch<FOV>(cnt);
+  pull_tile<ORDER, FOV>(vol, out, mp, nx, ny, nz, ox, oy, oz, fov,
+                        blockIdx.z);
+}
+
+template <int ORDER, bool FOV>
+__global__ void __launch_bounds__(kLanesZ * kRowsY)
+    pull_batch_kernel(const float* __restrict__ vol, float* __restrict__ out,
+                      const float* __restrict__ mp, int nx, int ny, int nz,
+                      int ox, int oy, int oz, Box fov,
+                      unsigned long long* cnt, int batch, long long vstride) {
+  count_launch<FOV>(cnt);
+  for (int b = 0; b < batch; ++b)
+    pull_tile<ORDER, FOV>(vol + b * vstride,
+                          out + b * ((long long)ox * oy * oz), mp + 12 * b,
+                          nx, ny, nz, ox, oy, oz, fov, blockIdx.z);
+}
+
 // ---------------------------------------------------------------------------
 // push
 //
@@ -319,17 +353,21 @@ __global__ void __launch_bounds__(kLanesZ * kRowsY)
 // (FOV = true) the bounds need not enclose the target grid, so every
 // candidate of every target is tested against them; the default
 // instantiation is the kernel without it, instruction for instruction.
+//
+// The batched launch (push_batch_kernel) covers B volumes with one volume's
+// launch grid as pull's: the sources of volume b at vals + b * vstride, its
+// plan at plan + 32 b, its output at out + b * tx * ty * tz, each target
+// computed by the same code (push_target) as unbatched.
 // ---------------------------------------------------------------------------
 template <int ORDER, bool FOV>
-__global__ void __launch_bounds__(kLanesZ * kRowsY)
-    push_kernel(const float* __restrict__ vals, float* __restrict__ out,
-                const float* __restrict__ plan, int sx, int sy, int sz,
-                int tx, int ty, int tz, int wx, int wy, int wz, Box fov,
-                unsigned long long* cnt) {
-  count_launch<FOV>(cnt);
+__device__ __forceinline__ void push_target(const float* __restrict__ vals,
+                                            float* __restrict__ out,
+                                            const float* __restrict__ plan,
+                                            int sx, int sy, int sz, int tx,
+                                            int ty, int tz, int wx, int wy,
+                                            int wz, const Box& fov, int vi) {
   const int vk = blockIdx.x * kLanesZ + threadIdx.x;
   const int vj = blockIdx.y * kRowsY + threadIdx.y;
-  const int vi = blockIdx.z;
   if (vk >= tz || vj >= ty) return;
   // the plan (ops/resample.py: push_plan): M, Minv, reach (3), window (3)
   const Map34 M = load_map_dev(plan);
@@ -394,6 +432,31 @@ __global__ void __launch_bounds__(kLanesZ * kRowsY)
     }
   }
   out[((long long)vi * ty + vj) * tz + vk] = acc;
+}
+
+template <int ORDER, bool FOV>
+__global__ void __launch_bounds__(kLanesZ * kRowsY)
+    push_kernel(const float* __restrict__ vals, float* __restrict__ out,
+                const float* __restrict__ plan, int sx, int sy, int sz,
+                int tx, int ty, int tz, int wx, int wy, int wz, Box fov,
+                unsigned long long* cnt) {
+  count_launch<FOV>(cnt);
+  push_target<ORDER, FOV>(vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy,
+                          wz, fov, blockIdx.z);
+}
+
+template <int ORDER, bool FOV>
+__global__ void __launch_bounds__(kLanesZ * kRowsY)
+    push_batch_kernel(const float* __restrict__ vals, float* __restrict__ out,
+                      const float* __restrict__ plan, int sx, int sy, int sz,
+                      int tx, int ty, int tz, int wx, int wy, int wz, Box fov,
+                      unsigned long long* cnt, int batch, long long vstride) {
+  count_launch<FOV>(cnt);
+  for (int b = 0; b < batch; ++b)
+    push_target<ORDER, FOV>(vals + b * vstride,
+                            out + b * ((long long)tx * ty * tz),
+                            plan + 32 * b, sx, sy, sz, tx, ty, tz, wx, wy, wz,
+                            fov, blockIdx.z);
 }
 
 // ---------------------------------------------------------------------------
@@ -486,11 +549,11 @@ __device__ __forceinline__ void pull_grad_tile(const float* __restrict__ vol,
                                                float* __restrict__ out,
                                                const Map34& M, int nx, int ny,
                                                int nz, int ox, int oy,
-                                               int oz) {
+                                               int oz, int zb) {
   const int j = blockIdx.y * RY + threadIdx.y;
   const int k = blockIdx.x * LZ + threadIdx.x;
   if (j >= oy || k >= oz) return;
-  const int i0 = blockIdx.z * RX;
+  const int i0 = zb * RX;
   float res[RX][3];
   pull_grad_rows<RX>(vol, M, nx, ny, nz, i0, ox, j, k, res);
 #pragma unroll
@@ -510,7 +573,25 @@ __global__ void __launch_bounds__(LZ * RY)
                      int ox, int oy, int oz, unsigned long long* cnt) {
   count_launch<false>(cnt);
   pull_grad_tile<LZ, RY, RX>(vol, out, load_map_dev(mp), nx, ny, nz, ox, oy,
-                             oz);
+                             oz, blockIdx.z);
+}
+
+// The batched launch, as pull's: one volume's launch grid, each thread
+// its output position in every volume in turn.
+template <int LZ, int RY, int RX>
+__global__ void __launch_bounds__(LZ * RY)
+    pull_grad_batch_kernel(const float* __restrict__ vol,
+                           float* __restrict__ out,
+                           const float* __restrict__ mp, int nx, int ny,
+                           int nz, int ox, int oy, int oz,
+                           unsigned long long* cnt, int batch,
+                           long long vstride) {
+  count_launch<false>(cnt);
+  for (int b = 0; b < batch; ++b)
+    pull_grad_tile<LZ, RY, RX>(vol + b * vstride,
+                               out + b * (3LL * ox * oy * oz),
+                               load_map_dev(mp + 12 * b), nx, ny, nz, ox, oy,
+                               oz, blockIdx.z);
 }
 
 // The map by value and no count: the block-shape sweep of
@@ -521,7 +602,8 @@ __global__ void __launch_bounds__(LZ * RY)
     pull_grad_kernel(const float* __restrict__ vol, float* __restrict__ out,
                      Map34 M, int nx, int ny, int nz, int ox, int oy,
                      int oz) {
-  pull_grad_tile<LZ, RY, RX>(vol, out, M, nx, ny, nz, ox, oy, oz);
+  pull_grad_tile<LZ, RY, RX>(vol, out, M, nx, ny, nz, ox, oy, oz,
+                             blockIdx.z);
 }
 
 // A host map (12 floats) by value, for scripts/pull_grad_variants.cu.
@@ -566,6 +648,37 @@ void launch_push(dim3 grid, dim3 block, cudaStream_t s, const float* vals,
   else
     push_kernel<ORDER, false><<<grid, block, 0, s>>>(
         vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, Box(), cnt);
+}
+
+template <int ORDER>
+void launch_pull_batch(dim3 grid, dim3 block, cudaStream_t s,
+                       const float* vol, float* out, const float* m, int nx,
+                       int ny, int nz, int ox, int oy, int oz,
+                       const float* fov, unsigned long long* cnt, int batch,
+                       long long vstride) {
+  if (fov)
+    pull_batch_kernel<ORDER, true><<<grid, block, 0, s>>>(
+        vol, out, m, nx, ny, nz, ox, oy, oz, load_box(fov), cnt, batch,
+        vstride);
+  else
+    pull_batch_kernel<ORDER, false><<<grid, block, 0, s>>>(
+        vol, out, m, nx, ny, nz, ox, oy, oz, Box(), cnt, batch, vstride);
+}
+
+template <int ORDER>
+void launch_push_batch(dim3 grid, dim3 block, cudaStream_t s,
+                       const float* vals, float* out, const float* plan,
+                       int sx, int sy, int sz, int tx, int ty, int tz, int wx,
+                       int wy, int wz, const float* fov,
+                       unsigned long long* cnt, int batch, long long vstride) {
+  if (fov)
+    push_batch_kernel<ORDER, true><<<grid, block, 0, s>>>(
+        vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, load_box(fov),
+        cnt, batch, vstride);
+  else
+    push_batch_kernel<ORDER, false><<<grid, block, 0, s>>>(
+        vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, Box(), cnt,
+        batch, vstride);
 }
 
 }  // namespace
@@ -630,6 +743,64 @@ int unires_pull_grad(const float* vol, float* out, const float* m, int nx,
   pull_grad_kernel<kGradLanesZ, kGradRowsY, kRowsX>
       <<<grid, block, 0, (cudaStream_t)stream>>>(vol, out, m, nx, ny, nz, ox,
                                                  oy, oz, cnt);
+  return (int)cudaGetLastError();
+}
+
+// The batched launches: B volumes in one launch. Volume b of the input
+// starts vstride floats after volume b - 1 (each volume C-contiguous; a
+// stride of 0 reads one volume B times); its map (pull, pull_grad) is the
+// 12 floats at m + 12 b, its plan (push) the 32 at plan + 32 b, and its
+// output follows the previous one's. Other arguments as unbatched.
+int unires_pull_batch(const float* vol, float* out, const float* m,
+                      const float* fov, int nx, int ny, int nz, int ox,
+                      int oy, int oz, int order, int batch, long long vstride,
+                      unsigned long long* cnt, void* stream) {
+  if ((long long)ox * oy * oz * batch == 0) return (int)cudaGetLastError();
+  const dim3 block(kLanesZ, kRowsY);
+  const dim3 grid((unsigned)((oz + kLanesZ - 1) / kLanesZ),
+                  (unsigned)((oy + kRowsY - 1) / kRowsY),
+                  (unsigned)((ox + kRowsX - 1) / kRowsX));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (order == 0)
+    launch_pull_batch<0>(grid, block, s, vol, out, m, nx, ny, nz, ox, oy, oz,
+                         fov, cnt, batch, vstride);
+  else
+    launch_pull_batch<1>(grid, block, s, vol, out, m, nx, ny, nz, ox, oy, oz,
+                         fov, cnt, batch, vstride);
+  return (int)cudaGetLastError();
+}
+
+int unires_push_batch(const float* vals, float* out, const float* plan,
+                      const float* fov, int sx, int sy, int sz, int tx,
+                      int ty, int tz, int wx, int wy, int wz, int order,
+                      int batch, long long vstride, unsigned long long* cnt,
+                      void* stream) {
+  if ((long long)tx * ty * tz * batch == 0) return (int)cudaGetLastError();
+  const dim3 block(kLanesZ, kRowsY);
+  const dim3 grid((unsigned)((tz + kLanesZ - 1) / kLanesZ),
+                  (unsigned)((ty + kRowsY - 1) / kRowsY), (unsigned)tx);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (order == 0)
+    launch_push_batch<0>(grid, block, s, vals, out, plan, sx, sy, sz, tx, ty,
+                         tz, wx, wy, wz, fov, cnt, batch, vstride);
+  else
+    launch_push_batch<1>(grid, block, s, vals, out, plan, sx, sy, sz, tx, ty,
+                         tz, wx, wy, wz, fov, cnt, batch, vstride);
+  return (int)cudaGetLastError();
+}
+
+int unires_pull_grad_batch(const float* vol, float* out, const float* m,
+                           int nx, int ny, int nz, int ox, int oy, int oz,
+                           int batch, long long vstride,
+                           unsigned long long* cnt, void* stream) {
+  if ((long long)ox * oy * oz * batch == 0) return (int)cudaGetLastError();
+  const dim3 block(kGradLanesZ, kGradRowsY);
+  const dim3 grid((unsigned)((oz + kGradLanesZ - 1) / kGradLanesZ),
+                  (unsigned)((oy + kGradRowsY - 1) / kGradRowsY),
+                  (unsigned)((ox + kRowsX - 1) / kRowsX));
+  pull_grad_batch_kernel<kGradLanesZ, kGradRowsY, kRowsX>
+      <<<grid, block, 0, (cudaStream_t)stream>>>(vol, out, m, nx, ny, nz, ox,
+                                                 oy, oz, cnt, batch, vstride);
   return (int)cudaGetLastError();
 }
 

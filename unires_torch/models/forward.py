@@ -38,7 +38,10 @@ def make_obs_suite(po: ProjOp, method: Method) -> dict:
     ``project(dat, M)`` is the forward chain without scaling (pull + blur,
     for the scaling Gauss-Newton update) and ``pull_grad(dat, M)`` the
     derivative of the pull on the same grid (``dim_yx`` for
-    super-resolution, ``dim_x`` for denoising) for the rigid one.
+    super-resolution, ``dim_x`` for denoising) for the rigid one. Every
+    function also takes a batch: (B, ...) volumes, (B, 3, 4) maps, (B,
+    PLAN_SIZE) push plans and (B,) scales (the batched fit chunk), one
+    kernel launch per step for the B volumes.
     """
     src_dim = po.dim_yx if method == "super-resolution" else po.dim_x
     dim_y = po.dim_y

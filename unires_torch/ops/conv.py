@@ -81,16 +81,19 @@ def _up_1d(dat: torch.Tensor, k: np.ndarray, r: int, axis: int) -> torch.Tensor:
 
 
 def blur_down_sep(dat: torch.Tensor, kers_1d, ratio) -> torch.Tensor:
-    """Separable strided blur: per-axis polyphase passes."""
+    """Separable strided blur: per-axis polyphase passes over the last three
+    axes (leading axes, a batch of volumes, ride along)."""
+    lead = dat.dim() - 3
     for axis, (k, r) in enumerate(zip(kers_1d, ratio)):
-        dat = _down_1d(dat, np.asarray(k), int(r), axis)
+        dat = _down_1d(dat, np.asarray(k), int(r), lead + axis)
     return dat
 
 
 def blur_up_sep(dat: torch.Tensor, kers_1d, ratio) -> torch.Tensor:
     """Exact adjoint of :func:`blur_down_sep`."""
+    lead = dat.dim() - 3
     for axis, (k, r) in enumerate(zip(kers_1d, ratio)):
-        dat = _up_1d(dat, np.asarray(k), int(r), axis)
+        dat = _up_1d(dat, np.asarray(k), int(r), lead + axis)
     return dat
 
 

@@ -27,12 +27,16 @@ _COMPILE = [f for f in _FLAGS if f != "-shared"] + ["-c"]
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # C signatures of csrc/resample.cu and csrc/graph.cu (every pointer and the
 # stream as c_void_p, so that ctypes never truncates a 64-bit address)
 _SIGNATURES = {
     "unires_pull": [_VP] * 4 + [_I] * 7 + [_VP, _VP],
     "unires_push": [_VP] * 4 + [_I] * 10 + [_VP, _VP],
     "unires_pull_grad": [_VP, _VP, _VP] + [_I] * 6 + [_VP, _VP],
+    "unires_pull_batch": [_VP] * 4 + [_I] * 8 + [_LL, _VP, _VP],
+    "unires_push_batch": [_VP] * 4 + [_I] * 11 + [_LL, _VP, _VP],
+    "unires_pull_grad_batch": [_VP, _VP, _VP] + [_I] * 7 + [_LL, _VP, _VP],
     "unires_if_begin": [_VP] * 4,
     "unires_if_end": [_VP, _VP],
     "unires_while_begin": [_VP] * 5,

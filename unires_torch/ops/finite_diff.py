@@ -7,7 +7,8 @@ unires/_update.py:132, 168-193): difference type 'forward' | 'backward' |
 EXACT adjoint of ``im_gradient`` (the solver adds rho lam^2 D^T D to the CG
 normal matrix, so adjointness is load-bearing).
 
-Layout: the gradient of a (X, Y, Z) image is (3, X, Y, Z).
+Layout: the gradient of a (X, Y, Z) image is (3, X, Y, Z); leading axes
+(a batch of images) ride along, (..., X, Y, Z) -> (..., 3, X, Y, Z).
 """
 from __future__ import annotations
 
@@ -26,32 +27,35 @@ def _roll_zero(u: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
 
 
 def im_gradient(dat: torch.Tensor, vx, which: str = "forward") -> torch.Tensor:
-    """D dat: (3, X, Y, Z), per-axis finite difference divided by voxel size."""
+    """D dat: (..., 3, X, Y, Z), per-axis finite difference divided by voxel
+    size."""
     gs = []
     for d in range(3):
+        ax = d - 3
         if which == "forward":
-            g = _roll_zero(dat, -1, d) - dat
+            g = _roll_zero(dat, -1, ax) - dat
         elif which == "backward":
-            g = dat - _roll_zero(dat, 1, d)
+            g = dat - _roll_zero(dat, 1, ax)
         elif which == "central":
-            g = 0.5 * (_roll_zero(dat, -1, d) - _roll_zero(dat, 1, d))
+            g = 0.5 * (_roll_zero(dat, -1, ax) - _roll_zero(dat, 1, ax))
         else:
             raise ValueError(which)
         gs.append(g / float(vx[d]))
-    return torch.stack(gs, dim=0)
+    return torch.stack(gs, dim=-4)
 
 
 def im_divergence(p: torch.Tensor, vx, which: str = "forward") -> torch.Tensor:
     """D^T p: exact adjoint of :func:`im_gradient` (NOT the negative adjoint)."""
-    out = torch.zeros_like(p[0])
+    out = torch.zeros_like(p.select(-4, 0))
     for d in range(3):
-        q = p[d]
+        ax = d - 3
+        q = p.select(-4, d)
         if which == "forward":
-            a = _roll_zero(q, 1, d) - q
+            a = _roll_zero(q, 1, ax) - q
         elif which == "backward":
-            a = q - _roll_zero(q, -1, d)
+            a = q - _roll_zero(q, -1, ax)
         elif which == "central":
-            a = 0.5 * (_roll_zero(q, 1, d) - _roll_zero(q, -1, d))
+            a = 0.5 * (_roll_zero(q, 1, ax) - _roll_zero(q, -1, ax))
         else:
             raise ValueError(which)
         out = out + a / float(vx[d])

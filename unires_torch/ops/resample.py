@@ -18,6 +18,16 @@ Each wrapper counts its kernel launches in ``pull.launches`` /
 kernels' ``fov`` instantiation also in ``pull.fov_launches`` /
 ``push.fov_launches``.
 
+Batches: every wrapper also takes a leading batch axis, volumes (B, X, Y,
+Z) with maps (B, 3, 4) (push: plans (B, :data:`PLAN_SIZE`)), and gives
+(B, ...) outputs: the counterpart of ``vmap`` over a ``pallas_call`` (the
+batched fit chunk, ``solvers.fitloop``). On the card one launch covers the
+batch (one count), each output computed as the unbatched launch computes
+it, so the two agree to the bit; a batch of one takes the unbatched launch.
+Each volume of a batch must be C-contiguous, the stride between volumes is
+free (a channel of a stacked (B, C, X, Y, Z) state, or 0 for one volume
+read B times). The plain versions run a batch volume by volume.
+
 Maps: ``M`` is the (3, 4) float32 map from output voxel to input voxel. The
 kernels read it from DEVICE memory, so that a map may change between two
 replays of a captured CUDA graph: a CUDA tensor is passed as it is, and a
@@ -264,7 +274,10 @@ def _corner_data(g, in_dim, order):
 
 def pull_plain(vol: torch.Tensor, M, out_dim, order: int = 1,
                fov=None) -> torch.Tensor:
-    """Plain PyTorch pull (``unires_tpu.ops.resample._pull_gather``)."""
+    """Plain PyTorch pull (``unires_tpu.ops.resample._pull_gather``); a
+    batch (B, X, Y, Z) at maps (B, 3, 4) volume by volume."""
+    if _batched(vol):
+        return _per_volume(pull_plain, vol, M, out_dim, order, fov)
     M = _as_map(M)
     out_dim = tuple(int(d) for d in out_dim)
     in_dim = tuple(vol.shape)
@@ -281,7 +294,13 @@ def push_plain(vals: torch.Tensor, M, vol_dim, order: int = 1, Minv=None,
                window=None, fov=None) -> torch.Tensor:
     """Plain PyTorch push, the gather form of pull^T
     (``unires_tpu.ops.resample._push_gather``). ``Minv`` may be a
-    :func:`push_plan`: its inverse map and its window are taken."""
+    :func:`push_plan`: its inverse map and its window are taken. A batch
+    (B, X, Y, Z) takes (B, 3, 4) maps and (B, ...) ``Minv``, volume by
+    volume."""
+    if _batched(vals):
+        return torch.stack([push_plain(
+            vals[b], M[b], vol_dim, order, None if Minv is None else Minv[b],
+            window, fov) for b in range(len(vals))])
     M = _as_map(M)
     if _is_plan(Minv):
         Minv, plan_window = _plan_parts(Minv)
@@ -328,7 +347,10 @@ def push_plain(vals: torch.Tensor, M, vol_dim, order: int = 1, Minv=None,
 
 def pull_grad_plain(vol: torch.Tensor, M, out_dim) -> torch.Tensor:
     """d pull / d g (trilinear): shape out_dim + (3,)
-    (``unires_tpu.ops.resample._pull_grad_gather``)."""
+    (``unires_tpu.ops.resample._pull_grad_gather``); a batch as
+    :func:`pull_plain`'s."""
+    if _batched(vol):
+        return _per_volume(pull_grad_plain, vol, M, out_dim)
     M = _as_map(M)
     out_dim = tuple(int(d) for d in out_dim)
     in_dim = tuple(vol.shape)
@@ -419,19 +441,32 @@ class _Counted:
 
 
 def _on_cpu(t: torch.Tensor, name: str) -> bool:
-    """True for a CPU tensor; checks a CUDA tensor for the kernel; raises
-    for any other device."""
+    """True for a CPU tensor; checks a CUDA tensor for the kernel (a volume,
+    or a batch of volumes each C-contiguous, the batch's stride free);
+    raises for any other device."""
     if t.device.type == "cpu":
         return True
     if t.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {t.device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
-    if t.dim() != 3:
-        raise ValueError(f"{name}: expected a 3D volume, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: the kernel needs a contiguous volume")
+    if t.dim() not in (3, 4):
+        raise ValueError(f"{name}: expected a 3D volume or a batch of them, "
+                         f"got {tuple(t.shape)}")
+    if not t[(0,) * (t.dim() - 3)].is_contiguous():
+        raise ValueError(f"{name}: the kernel needs contiguous volumes")
     return False
+
+
+def _batched(t: torch.Tensor) -> bool:
+    """A batch (B, X, Y, Z) of volumes rather than one (X, Y, Z)."""
+    return t.dim() == 4
+
+
+def _per_volume(fn, t: torch.Tensor, M, *args, **kw) -> torch.Tensor:
+    """A plain version over a batch: ``fn`` of each volume at its map,
+    stacked."""
+    return torch.stack([fn(t[b], M[b], *args, **kw) for b in range(len(t))])
 
 
 def _check_size(*dims) -> None:
@@ -481,11 +516,15 @@ def _device_buffer(t, numel: int, device: torch.device, name: str):
     return t
 
 
-def _device_map(M, device: torch.device, name: str) -> torch.Tensor:
-    """The (3, 4) map in device memory: a CUDA tensor as it is, a host map
-    staged."""
+def _device_map(M, device: torch.device, name: str,
+                batch: int = 0) -> torch.Tensor:
+    """The (3, 4) map, or the (batch, 3, 4) maps of a batch, in device
+    memory: a CUDA tensor as it is, host maps staged."""
     if isinstance(M, torch.Tensor) and M.device.type == "cuda":
-        return _device_buffer(M, 12, device, name)
+        return _device_buffer(M, 12 * max(batch, 1), device, name)
+    if batch:
+        return _stage(np.stack([_as_map(M[b]) for b in range(batch)]),
+                      device)
     return _stage(_as_map(M), device)
 
 
@@ -502,15 +541,22 @@ def pull(vol: torch.Tensor, M, out_dim, order: int = 1,
     out_dim = tuple(int(d) for d in out_dim)
     if _on_cpu(vol, "pull"):
         return pull_plain(vol, M, out_dim, order, fov)
-    Md = _device_map(M, vol.device, "pull")
+    B = len(vol) if _batched(vol) else 0
+    Md = _device_map(M, vol.device, "pull", B)
     fov = _as_fov(fov)
-    _check_size(vol.shape, out_dim)
-    out = torch.empty(out_dim, dtype=torch.float32, device=vol.device)
+    _check_size(vol.shape[-3:], out_dim)
+    out = torch.empty(vol.shape[:-3] + out_dim, dtype=torch.float32,
+                      device=vol.device)
+    lib = kernels.get()
     with torch.cuda.device(vol.device):
-        err = kernels.get().unires_pull(
-            vol.data_ptr(), out.data_ptr(), Md.data_ptr(), _fov_ptr(fov),
-            *vol.shape, *out_dim, order, pull.count.ptr(vol.device),
-            torch.cuda.current_stream().cuda_stream)
+        args = (vol.data_ptr(), out.data_ptr(), Md.data_ptr(), _fov_ptr(fov),
+                *vol.shape[-3:], *out_dim, order)
+        tail = (pull.count.ptr(vol.device),
+                torch.cuda.current_stream().cuda_stream)
+        if B > 1:
+            err = lib.unires_pull_batch(*args, B, vol.stride(0), *tail)
+        else:
+            err = lib.unires_pull(*args, *tail)
     check(err, "pull")
     return out
 
@@ -537,27 +583,39 @@ def push(vals: torch.Tensor, M, vol_dim, order: int = 1, Minv=None,
     if _on_cpu(vals, "push"):
         return push_plain(vals, M, vol_dim, order, Minv, window, fov)
     dev = vals.device
+    B = len(vals) if _batched(vals) else 0
+    n = max(B, 1)
+    src_dim = tuple(vals.shape[-3:])
     if _is_plan(Minv):
-        plan = _device_buffer(Minv, PLAN_SIZE, dev, "push")
+        plan = _device_buffer(Minv, PLAN_SIZE * n, dev, "push")
     elif isinstance(M, torch.Tensor) and M.device.type == "cuda":
-        plan = push_plan(_device_buffer(M, 12, dev, "push"),
+        plan = push_plan(_device_buffer(M, 12 * n, dev, "push"),
                          None if Minv is None
-                         else _device_map(Minv, dev, "push"),
-                         order, tuple(vals.shape), vol_dim)
+                         else _device_map(Minv, dev, "push", B),
+                         order, src_dim, vol_dim)
     else:
-        plan = _stage(_push_plan(
-            _as_map(M).tobytes(),
-            None if Minv is None else _as_map(Minv).tobytes(), order,
-            tuple(vals.shape), vol_dim), dev)
+        def host_plan(m, mi):
+            return _push_plan(_as_map(m).tobytes(), None if mi is None
+                              else _as_map(mi).tobytes(), order, src_dim,
+                              vol_dim)
+
+        plan = _stage(np.stack([host_plan(
+            M[b], None if Minv is None else Minv[b]) for b in range(B)])
+            if B else host_plan(M, Minv), dev)
     window = (-1, -1, -1) if window is None else _check_window(window)
     fov = _as_fov(fov)
-    _check_size(vals.shape, vol_dim)
-    out = torch.empty(vol_dim, dtype=torch.float32, device=dev)
+    _check_size(src_dim, vol_dim)
+    out = torch.empty(vals.shape[:-3] + vol_dim, dtype=torch.float32,
+                      device=dev)
+    lib = kernels.get()
     with torch.cuda.device(dev):
-        err = kernels.get().unires_push(
-            vals.data_ptr(), out.data_ptr(), plan.data_ptr(), _fov_ptr(fov),
-            *vals.shape, *vol_dim, *window, order, push.count.ptr(dev),
-            torch.cuda.current_stream().cuda_stream)
+        args = (vals.data_ptr(), out.data_ptr(), plan.data_ptr(),
+                _fov_ptr(fov), *src_dim, *vol_dim, *window, order)
+        tail = (push.count.ptr(dev), torch.cuda.current_stream().cuda_stream)
+        if B > 1:
+            err = lib.unires_push_batch(*args, B, vals.stride(0), *tail)
+        else:
+            err = lib.unires_push(*args, *tail)
     check(err, "push")
     return out
 
@@ -572,14 +630,21 @@ def pull_grad(vol: torch.Tensor, M, out_dim) -> torch.Tensor:
     out_dim = tuple(int(d) for d in out_dim)
     if _on_cpu(vol, "pull_grad"):
         return pull_grad_plain(vol, M, out_dim)
-    Md = _device_map(M, vol.device, "pull_grad")
-    _check_size(vol.shape, out_dim + (3,))
-    out = torch.empty(out_dim + (3,), dtype=torch.float32, device=vol.device)
+    B = len(vol) if _batched(vol) else 0
+    Md = _device_map(M, vol.device, "pull_grad", B)
+    _check_size(vol.shape[-3:], out_dim + (3,))
+    out = torch.empty(vol.shape[:-3] + out_dim + (3,), dtype=torch.float32,
+                      device=vol.device)
+    lib = kernels.get()
     with torch.cuda.device(vol.device):
-        err = kernels.get().unires_pull_grad(
-            vol.data_ptr(), out.data_ptr(), Md.data_ptr(), *vol.shape,
-            *out_dim, pull_grad.count.ptr(vol.device),
-            torch.cuda.current_stream().cuda_stream)
+        args = (vol.data_ptr(), out.data_ptr(), Md.data_ptr(),
+                *vol.shape[-3:], *out_dim)
+        tail = (pull_grad.count.ptr(vol.device),
+                torch.cuda.current_stream().cuda_stream)
+        if B > 1:
+            err = lib.unires_pull_grad_batch(*args, B, vol.stride(0), *tail)
+        else:
+            err = lib.unires_pull_grad(*args, *tail)
     check(err, "pull_grad")
     return out
 

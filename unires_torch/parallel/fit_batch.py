@@ -6,19 +6,21 @@ subject runs the FULL per-subject algorithm — ADMM y/z/w updates, even/odd
 scaling GN, unified rigid GN, the coarse-to-fine lambda schedule and
 per-subject gain convergence — so ``fit_batch`` on B subjects is semantically
 identical to B independent ``pipeline.fit.fit`` runs (tested:
-tests/test_torch_batch.py pins equality against the single fit).
+tests/test_torch_batch.py and tests/test_torch_batchchunk.py pin equality
+against the single fit).
 
-The JAX package compiles one program for a geometry-homogeneous batch and
-maps it over a device mesh, with its Pallas window plans sized for every
-subject. Here subject b goes to device ``b % g`` (:func:`assign_devices`),
-and each device's subjects are fitted round-robin through the stepper that
-``pipeline.fit.fit`` uses (``pipeline.fit.FitRun``): a chunk of
-``chunk_iters`` outer iterations of every live subject is enqueued (on the
-card, replays of each subject's captured graph) before any subject's chunk
-is read, so that the card runs one subject's chunk while the host reads or
-enqueues another's. With more than one device, one host thread drives each.
-The batch must still be homogeneous (:func:`check_homogeneous`), as in the
-JAX package.
+As in the JAX package, the subjects of one device form ONE chunk
+(``solvers.fitloop.make_batch_chunk``, the JAX ``make_batch_chunk``'s
+``vmap``): built once from subject 0, every subject's state, data, taus,
+lam0 and geometry stacked on a leading subject axis, so that each
+resampling kernel takes the subjects' volumes in one launch. On the card
+the chunk is one captured CUDA graph, replayed ``chunk_iters`` times and
+read once per chunk for all its subjects; a device's share of one subject
+runs the same chunk with one subject, which is the single fit's iteration.
+Subject b goes to device ``b % g`` (:func:`assign_devices`); with more
+than one device, one host thread drives each. The batch must be
+homogeneous (:func:`check_homogeneous`): its shapes are stacked. There is
+no fallback to per-subject graphs or to the serial path.
 """
 from __future__ import annotations
 
@@ -27,7 +29,10 @@ import threading
 import numpy as np
 import torch
 
-from ..pipeline.fit import FitRun, get_sched
+from ..geometry import fov_centre, rigid_from_q
+from ..pipeline.fit import _gather_subdats, _sync_state, chunk_len, get_sched
+from ..solvers.fitloop import (init_state, make_batch_chunk, stack_states,
+                               subject_state)
 
 __all__ = ["assign_devices", "check_homogeneous", "fit_batch"]
 
@@ -57,9 +62,10 @@ def assign_devices(B: int, n_devices: int):
 def check_homogeneous(xs, ys, sett) -> None:
     """Raise ValueError unless the subjects form a homogeneous batch: same
     recon grid, same channel/repeat structure, same CT flags and the same
-    observation geometry (dims, ratios, slice thickness). Per-subject poses,
-    affines and hyper-parameters MAY differ. The CUDA kernels take any
-    affine and would fit a mixed batch; the check is the JAX package's."""
+    observation geometry (dims, ratios, slice thickness), the shapes that
+    a batched chunk stacks. Per-subject poses, affines and hyper-parameters
+    MAY differ: they are stacked operands. The check is the JAX
+    package's."""
     x0, y0 = xs[0], ys[0]
     dim0 = tuple(int(d) for d in y0[0].dim)
     struct0 = [len(xc) for xc in x0]
@@ -101,7 +107,73 @@ def _move(x, y, dev) -> None:
             yc.label = yc.label.to(dev)
 
 
-def fit_batch(xs, ys, sett, devices=None):
+class BatchRun:
+    """The subjects of one device as one stacked chunk
+    (``solvers.fitloop.make_batch_chunk``): ``step()`` runs a chunk of
+    every subject and reads it once, appending each live iteration's
+    objective to that subject's trace; ``finish()`` writes every subject's
+    state back into its structs (``pipeline.fit._sync_state``, as the JAX
+    package's l.250-264) and returns what ``pipeline.fit.fit`` returns for
+    each. ``capture`` is the chunk's (tests and ``chip_smoke.py`` pass
+    False to run the card uncaptured)."""
+
+    def __init__(self, xs, ys, sett, capture=None):
+        self.xs, self.ys, self.sett = xs, ys, sett
+        self.B = len(xs)
+        self.chunk = make_batch_chunk(xs, ys, sett, chunk_len(sett), capture)
+        self.state = stack_states([init_state(xb, yb, sett)
+                                   for xb, yb in zip(xs, ys)])
+        self.xdats = [[torch.stack([xb[c][n].dat for xb in xs])
+                       for n in range(len(xs[0][c]))]
+                      for c in range(len(xs[0]))]
+        subdats = [_gather_subdats(xb, subs)
+                   for xb, subs in zip(xs, self.chunk.subs_of)]
+        self.subdats = [None if d[0] is None else torch.stack(d)
+                        for d in zip(*subdats)]
+        self.traces = [[] for _ in xs]
+
+    @property
+    def on(self) -> np.ndarray:
+        """The subjects still fitting, as last read: (B,) bool."""
+        h = self.state.host
+        return ~h["done"] & (h["n_iter"] < self.sett.max_iter)
+
+    @property
+    def live(self) -> bool:
+        return bool(self.on.any())
+
+    def step(self, n: int = None) -> None:
+        """One chunk of every subject (the finished ones frozen), read
+        once: ``n`` iterations, by default and at most ``chunk_iters``, at
+        most what ``max_iter`` leaves the least advanced live subject."""
+        n_iter = self.state.host["n_iter"][self.on]
+        n = self.chunk.K if n is None else min(int(n), self.chunk.K)
+        n = min(n, self.sett.max_iter - int(n_iter.min()))
+        self.chunk(self.state, self.xdats, self.subdats, n)
+        out = self.chunk.read(self.state, n)
+        for b in range(self.B):
+            self.traces[b].extend(out["objs"][b, k]
+                                  for k in np.flatnonzero(out["valid"][b]))
+
+    def finish(self):
+        out = []
+        basis = self.sett.rigid_basis
+        for b, (x, y) in enumerate(zip(self.xs, self.ys)):
+            st = subject_state(self.state, b)
+            _sync_state(x, y, self.sett, st)
+            N = sum(len(xc) for xc in x)
+            R = np.stack([np.eye(4)] * N)
+            centre = fov_centre(y[0].mat, y[0].dim)
+            for i, o in enumerate(o for xc in x for o in xc):
+                if o.rigid_q is not None and basis is not None:
+                    R[i] = rigid_from_q(o.rigid_q, basis, centre)
+            trace = (np.asarray(self.traces[b]) if self.traces[b]
+                     else np.zeros((0, 3)))
+            out.append((y, R, st.jtv, trace, len(self.traces[b])))
+        return out
+
+
+def fit_batch(xs, ys, sett, devices=None, capture=None):
     """Fit a geometry-homogeneous batch of subjects over the devices.
 
     ``xs``/``ys``: lists over subjects of the per-subject pipeline structs
@@ -109,12 +181,13 @@ def fit_batch(xs, ys, sett, devices=None):
     ``devices`` (default :func:`batch_devices`) lists the torch devices to
     spread over; naming the CPU twice gives two host threads. Returns a list
     over subjects of ``(y, R, jtv, obj_trace, n_iter)``, each as
-    ``pipeline.fit.fit`` returns it for that subject alone.
+    ``pipeline.fit.fit`` returns it for that subject alone. ``capture``:
+    as :class:`BatchRun`'s.
 
     As in the JAX package, checkpoint/resume, the profiler trace, the
     dashboards and ``clean_fov`` are single-subject features: batch mode
     does not read those settings. ``utils.host.to_host.syncs`` counts the
-    reads of all subjects together.
+    reads of all devices together: one per chunk per device.
     """
     B = len(xs)
     if B == 0:
@@ -133,48 +206,45 @@ def fit_batch(xs, ys, sett, devices=None):
     devices = ([torch.device(d) for d in devices] if devices is not None
                else batch_devices(sett))
     slots = assign_devices(B, len(devices))
+    groups = [[b for b in range(B) if slots[b] == k]
+              for k in sorted(set(slots))]
     runs = []
-    for xb, yb, slot in zip(xs, ys, slots):
-        dev = devices[slot]
-        _move(xb, yb, dev)
+    for k, mine in zip(sorted(set(slots)), groups):
+        dev = devices[k]
+        for b in mine:
+            _move(xs[b], ys[b], dev)
         sb = sett.copy()
         sb.device, sb.do_print = str(dev), 0  # the batch logs per round
-        runs.append(FitRun(xb, yb, sb))
+        runs.append(BatchRun([xs[b] for b in mine], [ys[b] for b in mine],
+                             sb, capture))
 
     lock = threading.Lock()
 
-    def drive(mine):
-        """Chunks of one device's subjects, every live subject's enqueued
-        before any is read, until none is live."""
-        while any(r.live for r in mine):
-            live = [r for r in mine if r.live]
-            for r in live:
-                r.launch()
-            for r in live:
-                r.collect()
+    def drive(run):
+        """Chunks of one device's subjects until none is live."""
+        while run.live:
+            run.step()
             if sett.do_print >= 1:
-                t0 = runs[0].obj_trace
+                n_iter = max(int(r.state.host["n_iter"].max()) for r in runs)
+                done = sum(int((~r.on).sum()) for r in runs)
+                t0 = runs[0].traces[0]
                 with lock:
-                    print(f"batch-fit: iter<= "
-                          f"{max(r.n_iter for r in runs)} done "
-                          f"{sum(not r.live for r in runs)}/{B} obj0 "
+                    print(f"batch-fit: iter<= {n_iter} done {done}/{B} obj0 "
                           f"{t0[-1][0] if t0 else float('nan'):.6g}",
                           flush=True)
 
-    groups = [[r for r, s in zip(runs, slots) if s == k]
-              for k in sorted(set(slots))]
-    if len(groups) == 1:
-        drive(groups[0])
+    if len(runs) == 1:
+        drive(runs[0])
     else:
         errors = []
 
-        def worker(mine):
+        def worker(run):
             try:
-                drive(mine)
+                drive(run)
             except BaseException as e:  # re-raised in the caller below
                 errors.append(e)
 
-        threads = [threading.Thread(target=worker, args=(g,)) for g in groups]
+        threads = [threading.Thread(target=worker, args=(r,)) for r in runs]
         for t in threads:
             t.start()
         for t in threads:
@@ -182,4 +252,8 @@ def fit_batch(xs, ys, sett, devices=None):
         if errors:
             raise errors[0]
 
-    return [r.finish(clean=False) for r in runs]
+    results = [None] * B
+    for mine, run in zip(groups, runs):
+        for b, res in zip(mine, run.finish()):
+            results[b] = res
+    return results

@@ -7,9 +7,9 @@ The iterations run in chunks of ``Settings.chunk_iters``
 (``solvers.fitloop.make_fit_chunk``: on the card, replays of a captured
 CUDA graph), and the host reads each chunk once, as the JAX loop does
 (``unires_tpu/pipeline/fit.py:209-235``); a chunk is cut short so that a
-checkpoint lands every ``checkpoint_every`` iterations. A per-subject
-stepper (:class:`FitRun`) holds the chunk; ``parallel.fit_batch`` enqueues
-every subject's chunk before it reads any. Around the loop: checkpoint /
+checkpoint lands every ``checkpoint_every`` iterations. A stepper
+(:class:`FitRun`) holds the chunk (``parallel.fit_batch`` stacks a batch's
+subjects into one chunk of its own). Around the loop: checkpoint /
 resume (``pipeline.checkpoint``), a ``torch.profiler`` trace
 (``Settings.profile_dir``) and the matplotlib dashboards (``utils.plots``),
 at chunk cadence. The JAX package's window re-plans have no counterpart:
@@ -131,12 +131,10 @@ class FitRun:
     ``step()`` does both; ``finish()`` writes the loop state back into the
     structs and returns what ``fit`` returns.
 
-    ``fit`` drives one of these to the end; ``parallel.fit_batch`` holds one
-    per subject and launches every subject's chunk before it collects any.
-    Each owns its chunk (``solvers.fitloop.make_fit_chunk``: on the card, a
-    captured graph bound to this subject's state), so no two subjects share
-    one. ``capture`` is the chunk's (tests and ``chip_smoke.py`` pass False
-    to run the card uncaptured).
+    ``fit`` drives one of these to the end. It owns its chunk
+    (``solvers.fitloop.make_fit_chunk``: on the card, a captured graph
+    bound to this subject's state). ``capture`` is the chunk's (tests and
+    ``chip_smoke.py`` pass False to run the card uncaptured).
     """
 
     def __init__(self, x: XData, y: YData, sett, state: FitState = None,

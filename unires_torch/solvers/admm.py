@@ -20,6 +20,16 @@ reading it back) or Python numbers; either way they enter each product as a
 Python number would, rounded to float32 there. Maps are (3, 4) host arrays
 or device tensors (``ops.resample``), and ``Minvs`` may be the maps' push
 plans.
+
+A batch of subjects (the batched fit chunk, ``solvers.fitloop``) runs the
+same body on tensors stacked on a leading subject axis: ys (B, C, X, Y,
+Z), volumes (B, ...), maps (B, 3, 4), and every per-subject number a
+device tensor, tau and the scales (B,) float32, lam (B, C) and rho (B,)
+float64, the objective (B, 3). The CG runs over the B * C entries, each
+subject's channels reduced together and apart from the other subjects'
+(``cg_batched(groups=B)``); the objective, the JTV norm and the DCT
+products are taken per subject on a single fit's shapes
+(``utils.batch.each``), so a subject keeps its single fit's numbers.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import torch
 
 from ..models.forward import make_obs_ops, obs_dyn_args
 from ..ops.finite_diff import im_divergence, im_gradient
+from ..utils.batch import each, sum_f64
 from .cg import cg_batched
 
 
@@ -44,6 +55,23 @@ def _vx_y(y) -> tuple:
 
 def _f64_sum(v: torch.Tensor) -> torch.Tensor:
     return v.sum(dtype=torch.float64)
+
+
+def _f32(v, nd: int):
+    """A per-subject number as a factor of a float32 tensor with ``nd``
+    axes after the subject axis: a Python number as it is, one number in a
+    tensor as a 0-d tensor (rounded to float32 in the product), a (B,)
+    tensor rounded to float32 and shaped to broadcast."""
+    if not isinstance(v, torch.Tensor) or v.numel() == 1:
+        return v if not isinstance(v, torch.Tensor) else v.reshape(())
+    return v.to(torch.float32).reshape(v.shape + (1,) * nd)
+
+
+def _half(tau):
+    """0.5 tau in float64: a Python number, or a (B,) tensor."""
+    if isinstance(tau, torch.Tensor):
+        return 0.5 * tau.to(torch.float64)
+    return 0.5 * float(tau)
 
 
 def _device_scalars(lams, rho, device):
@@ -175,7 +203,8 @@ def jacobi_tables(dim_y, device="cpu"):
 def make_cdiag_fn(x, sett) -> Callable:
     """cdiags(Ms, Minvs, scls, taus) -> (C,) float32 tensor with
     cdiag_c = sum_n tau_cn * mean(AtA_cn(1)), the data-term diagonal of the
-    CG preconditioner."""
+    CG preconditioner; (B, C) for a batch's (B, 3, 4) maps and (B,) taus
+    and scales."""
     C = len(x)
     method = sett.method
     do_proj = sett.do_proj
@@ -184,19 +213,25 @@ def make_cdiag_fn(x, sett) -> Callable:
     ops = [[make_obs_ops(o.po, method) for o in x[c]] for c in range(C)]
 
     def cdiags(Ms, Minvs, scls, taus):
-        ones = torch.ones(dim_y, dtype=torch.float32, device=dev)
+        M0 = Ms[0][0]
+        lead = tuple(M0.shape[:-2]) if isinstance(M0, torch.Tensor) else ()
+        # one volume of ones, read by every subject of a batch
+        ones = torch.ones(dim_y, dtype=torch.float32,
+                          device=dev).expand(lead + dim_y)
         out = []
         for c in range(C):
-            acc = torch.zeros((), dtype=torch.float32, device=dev)
+            acc = torch.zeros(lead, dtype=torch.float32, device=dev)
             for n in range(len(x[c])):
+                tau = taus[c][n]
+                tau = tau if isinstance(tau, torch.Tensor) else float(tau)
                 if do_proj:
                     ata1 = ops[c][n][2](ones, Ms[c][n], Minvs[c][n],
                                         scls[c][n])
-                    acc = acc + float(taus[c][n]) * torch.mean(ata1)
+                    acc = acc + tau * each(torch.mean, ata1, 3)
                 else:
-                    acc = acc + float(taus[c][n])
+                    acc = acc + tau
             out.append(acc)
-        return torch.stack(out)
+        return torch.stack(out, dim=-1)
 
     return cdiags
 
@@ -208,11 +243,14 @@ def make_cdiag_fn(x, sett) -> Callable:
 def make_admm_body(x, y, sett):
     """Single ADMM iteration for this problem's geometry.
 
-    Returns ``body(ys, z, w, xdats, Ms, Minvs, scls, taus, lams, rho, cdiags)
-    -> (ys, z, w, jtv, obj)`` with obj a (3,) float64 tensor =
+    Returns ``body(ys, z, w, xdats, Ms, Minvs, scls, taus, lams, rho, cdiags,
+    live=None) -> (ys, z, w, jtv, obj)`` with obj a (3,) float64 tensor =
     (-ln p(y|x), -ln p(x|y), -ln p(y)). ``lams`` (C,) and ``rho``: float64
     device tensors or Python numbers. Nothing is read back but the CG's stop
-    test, which a captured graph reads on the device.
+    test, which a captured graph reads on the device. For a batch (ys of
+    five axes; see the module's docstring) every output gains the subject
+    axis, and ``live`` (B,) bool marks the subjects to solve: the CG entries
+    of the others stay where they are.
     """
     C = len(x)
     method = sett.method
@@ -236,97 +274,117 @@ def make_admm_body(x, y, sett):
     eig_tabs = dct_membrane_tables(dim_y, dev)
     jac_tabs = jacobi_tables(dim_y, dev)
 
-    def _bc(v):
-        return v[:, None, None, None]
-
-    def make_precond(cdiags, rho, lams_t):
+    def make_precond(cdiags, rho, lams_t, groups):
         if precond_mode == "none":
             return None
         tabs = jac_tabs if precond_mode == "jacobi" else eig_tabs
         field = (tabs[0] / (vx[0] * vx[0]) + tabs[1] / (vx[1] * vx[1])
                  + tabs[2] / (vx[2] * vx[2]))
-        denom = _bc(cdiags) + rho * _bc(lams_t * lams_t) * field
+        rl = _f32(rho, 1) * (lams_t * lams_t)
+        denom = (cdiags.reshape(-1, 1, 1, 1)
+                 + rl.reshape(-1, 1, 1, 1) * field)
         if precond_mode == "jacobi":
             return lambda V: V / denom
         CxT, CyT, CzT = Cx.T, Cy.T, Cz.T
 
-        def P(V):
+        def P1(V, d):
             t = dct_apply(V, CxT, CyT, CzT)
-            return dct_apply(t / denom, Cx, Cy, Cz)
+            return dct_apply(t / d, Cx, Cy, Cz)
 
-        return P
+        if groups == 1:
+            return lambda V: P1(V, denom)
+        # the products of each subject on its own (a single fit's shapes)
+        return lambda V: torch.cat([P1(v, d) for v, d in zip(
+            V.chunk(groups), denom.chunk(groups))])
 
-    def body(ys, z, w, xdats, Ms, Minvs, scls, taus, lams, rho, cdiags):
+    def body(ys, z, w, xdats, Ms, Minvs, scls, taus, lams, rho, cdiags,
+             live=None):
         lams, rho = _device_scalars(lams, rho, dev)
+        lead = tuple(ys.shape[:-4])  # () or (B,): the subjects
+        B = lead[0] if lead else 1
         lams_t = lams.to(torch.float32)
 
-        # ---- y-update: all channels in one batched CG ----
+        def chan(t, c):  # channel c of a (..., C, ...) stack
+            return t.select(len(lead), c)
+
+        # ---- y-update: all channels (of every subject) in one batched CG
         rhs_all = []
         for c in range(C):
-            rhs = torch.zeros_like(ys[c])
+            rhs = torch.zeros_like(chan(ys, c))
             for n in range(len(x[c])):
+                tau = _f32(taus[c][n], 3)
                 if do_proj:
-                    rhs = rhs + float(taus[c][n]) * ops[c][n][1](
+                    rhs = rhs + tau * ops[c][n][1](
                         xdats[c][n], Ms[c][n], Minvs[c][n], scls[c][n])
                 else:
-                    rhs = rhs + float(taus[c][n]) * xdats[c][n]
-            div = im_divergence(w[c] - rho * z[c], vx, diff)
-            rhs_all.append(rhs - lams[c] * div)
-        rhs_all = torch.stack(rhs_all)
+                    rhs = rhs + tau * xdats[c][n]
+            div = im_divergence(chan(w, c) - _f32(rho, 4) * chan(z, c), vx,
+                                diff)
+            rhs_all.append(rhs - _f32(lams[..., c], 3) * div)
+        rhs_all = torch.stack(rhs_all, dim=-4).reshape((-1,) + dim_y)
 
         def lhs_all(V):
+            V = V.reshape(lead + (C,) + dim_y)
             outs = []
             for c in range(C):
-                lam = lams[c]
-                out = rho * lam * lam * im_divergence(
-                    im_gradient(V[c], vx, diff), vx, diff)
+                lam = lams[..., c]
+                Vc = chan(V, c)
+                out = _f32(rho * lam * lam, 3) * im_divergence(
+                    im_gradient(Vc, vx, diff), vx, diff)
                 for n in range(len(x[c])):
+                    tau = _f32(taus[c][n], 3)
                     if do_proj:
-                        out = out + float(taus[c][n]) * ops[c][n][2](
-                            V[c], Ms[c][n], Minvs[c][n], scls[c][n])
+                        out = out + tau * ops[c][n][2](
+                            Vc, Ms[c][n], Minvs[c][n], scls[c][n])
                     else:
-                        out = out + float(taus[c][n]) * V[c]
+                        out = out + tau * Vc
                 outs.append(out)
-            return torch.stack(outs)
+            return torch.stack(outs, dim=-4).reshape((-1,) + dim_y)
 
         # residual stop at 3x the gain tolerance, as the JAX solver
-        ys = cg_batched(lhs_all, rhs_all, ys, max_iter=cg_iter,
-                        tol=3.0 * cg_tol,
-                        precond=make_precond(cdiags, rho, lams_t),
-                        verbose=bool(sett.cgs_verbose))
+        ys = cg_batched(lhs_all, rhs_all, ys.reshape((-1,) + dim_y),
+                        max_iter=cg_iter, tol=3.0 * cg_tol,
+                        precond=make_precond(cdiags, rho, lams_t, B),
+                        verbose=bool(sett.cgs_verbose), groups=B,
+                        live=None if live is None
+                        else live.repeat_interleave(C))
+        ys = ys.reshape(lead + (C,) + dim_y)
 
         # ---- objective (reference _compute_nll), float64 sums ----
-        nll_xy = torch.zeros((), dtype=torch.float64, device=dev)
+        nll_xy = torch.zeros(lead, dtype=torch.float64, device=dev)
         for c in range(C):
             for n in range(len(x[c])):
                 if do_proj:
-                    Ay = ops[c][n][0](ys[c], Ms[c][n], Minvs[c][n],
+                    Ay = ops[c][n][0](chan(ys, c), Ms[c][n], Minvs[c][n],
                                       scls[c][n])
                 else:
-                    Ay = ys[c]
+                    Ay = chan(ys, c)
                 res = torch.where(xdats[c][n] != 0, xdats[c][n] - Ay, 0.0)
-                nll_xy = nll_xy + 0.5 * float(taus[c][n]) * _f64_sum(res * res)
+                nll_xy = nll_xy + _half(taus[c][n]) * sum_f64(res * res)
 
         # ---- gradients for z/w (and the JTV prior term) ----
-        Dys = torch.stack([lams[c] * im_gradient(ys[c], vx, diff)
-                           for c in range(C)])  # (C, 3, *dim_y)
-        nll_y = _f64_sum(torch.sqrt(torch.sum(Dys * Dys, dim=(0, 1))))
+        Dys = torch.stack([_f32(lams[..., c], 4)
+                           * im_gradient(chan(ys, c), vx, diff)
+                           for c in range(C)], dim=-5)  # (..., C, 3, *dim_y)
+        nll_y = each(lambda d: _f64_sum(torch.sqrt(torch.sum(d, dim=(0, 1)))),
+                     Dys * Dys, 5)
 
         if alpha != 1.0:  # over/under-relaxation (reference :163-190)
             Dys_rel = alpha * Dys + (1.0 - alpha) * z
         else:
             Dys_rel = Dys
 
-        # ---- z-update: multi-channel group shrinkage ----
-        u = w / rho + Dys_rel
-        mag = torch.sqrt(torch.sum(u * u, dim=(0, 1)))
-        shrink = torch.clamp(mag - 1.0 / rho, min=0.0) / (mag + tiny)
-        z = shrink[None, None] * u
+        # ---- z-update: multi-channel group shrinkage (per subject) ----
+        u = w / _f32(rho, 5) + Dys_rel
+        mag = each(lambda q: torch.sqrt(torch.sum(q, dim=(0, 1))), u * u, 5)
+        shrink = (torch.clamp(mag - _f32(1.0 / rho, 3), min=0.0)
+                  / (mag + tiny))
+        z = shrink[..., None, None, :, :, :] * u
 
         # ---- w-update: dual ascent ----
-        w = w + rho * (Dys_rel - z)
+        w = w + _f32(rho, 5) * (Dys_rel - z)
 
-        obj = torch.stack([nll_xy + nll_y, nll_xy, nll_y])
+        obj = torch.stack([nll_xy + nll_y, nll_xy, nll_y], dim=-1)
         return ys, z, w, shrink, obj
 
     return body

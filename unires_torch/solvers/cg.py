@@ -9,8 +9,8 @@ after ``unires_tpu.solvers.cg.cg``. Gain (nitorch get_gain): gain_k =
 - b^T x, tracked by a running max and min.
 
 ``cg_batched`` is the iteration of ``unires_tpu.solvers.cg.cg_batched``:
-every batch (channel) entry follows the trajectory ``cg(..., stop=
-'residual')`` would give it alone —
+every batch (channel, or subject and channel) entry follows the trajectory
+``cg(..., stop='residual')`` would give it alone —
 per-entry alpha/beta from inner products over the volume axes, entries that
 reach their stopping residual are FROZEN (alpha = 0, p and rz held) while the
 rest iterate — and the operator and preconditioner act on the whole stack.
@@ -89,15 +89,25 @@ def cg(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
 def cg_batched(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
                x0: torch.Tensor, max_iter: int = 20, tol: float = 1e-3,
                precond: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-               verbose: bool = False, return_iters: bool = False):
+               verbose: bool = False, return_iters: bool = False,
+               groups: int = 1, live: Optional[torch.Tensor] = None):
     """Solve A x = b per leading-axis entry (SPD, matrix-free), from x0.
-    ``return_iters`` also returns the steps taken, a 0-d int64 tensor."""
+    ``return_iters`` also returns the steps taken, a 0-d int64 tensor.
+
+    ``groups``: the entries are that many equal runs (the subjects of a
+    batched fit, each run its channels), and each run's inner products are
+    reduced on their own, as that subject's would be alone. ``live``: a
+    bool per entry, False for entries that stay at x0 (a frozen subject's);
+    by default every entry is solved."""
     if precond is None:
         precond = lambda v: v  # noqa: E731
     axes = tuple(range(1, b.dim()))
 
     def dot(a, c):
-        return torch.sum(a * c, dim=axes)
+        if groups == 1:
+            return torch.sum(a * c, dim=axes)
+        return torch.cat([torch.sum(q, dim=axes)
+                          for q in (a * c).chunk(groups)])
 
     def bc(s):
         return s.reshape(s.shape + (1,) * (b.dim() - 1))
@@ -108,7 +118,8 @@ def cg_batched(A: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     p = precond(r).clone()  # updated in place: never the residual itself
     rz = dot(r, p)
     ref = (tol * tol) * torch.clamp(dot(b, precond(b)), min=tiny)
-    live = torch.ones(b.shape[0], dtype=torch.bool, device=b.device)
+    live = (torch.ones(b.shape[0], dtype=torch.bool, device=b.device)
+            if live is None else live.clone())
     its = torch.zeros((), dtype=torch.int64, device=b.device)
 
     def step():

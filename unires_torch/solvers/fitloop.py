@@ -31,6 +31,13 @@ the gains, ``valid``, the poses, the scales and the counters once per chunk
 (:meth:`FitChunk.read`). On the CPU the same code runs uncaptured, each
 decision read on the host (the tests hold it against the JAX chunk).
 
+A batch of subjects on one device is one chunk (:func:`make_batch_chunk`,
+the counterpart of ``unires_tpu.parallel.fit_batch.make_batch_chunk``): the
+state, data, taus, lam0 and geometry stacked on a leading subject axis,
+every decision taken where some subject needs it, and per-subject masks
+keeping the others' state bitwise as it was (``vmap`` of the JAX loop). On
+the card it is one captured graph for all the subjects.
+
 The JAX loop's window-plan capacity checks have no counterpart: the CUDA
 kernels take any affine, so every check there is true, its pre-scale loop
 exits at step 1 and its veto never fires.
@@ -48,6 +55,7 @@ from ..models.forward import make_obs_suite
 from ..models.proj_op import proj_info
 from ..ops.lie import compose_maps, se3_dexpm, se3_expm
 from ..ops.resample import PLAN_SIZE, push_plan
+from ..utils.batch import any_of, each
 from ..utils.graph import capture, cond, forced
 from ..utils.host import to_host
 from .admm import make_admm_body, make_cdiag_fn
@@ -78,7 +86,8 @@ class FitState:
     ``host`` holds the host's copy of q, scl and the scalars as last read
     (:meth:`FitChunk.read`) or as the state was made; the stepper
     (``pipeline.fit.FitRun``) decides from it and never reads the device
-    state again in between."""
+    state again in between. A batch's state (:func:`stack_states`) has
+    every field stacked on a leading subject axis."""
 
     ys: torch.Tensor  # (C, *dim_y)
     z: torch.Tensor  # (C, 3, *dim_y)
@@ -185,6 +194,32 @@ def chunk_geom(x, y, sett):
     return pres, posts, subs
 
 
+def stack_states(states) -> FitState:
+    """The subjects' loop states stacked on a leading subject axis (the
+    state of a batched chunk, :func:`make_batch_chunk`): every tensor
+    field gains it, and ``host`` holds arrays with it."""
+    tensors = {f.name: torch.stack([getattr(st, f.name) for st in states])
+               for f in dataclasses.fields(FitState) if f.name != "host"}
+    host = {k: np.stack([np.asarray(st.host[k]) for st in states])
+            for k in ("q", "scl") + SCALARS}
+    return FitState(host=host, **tensors)
+
+
+def _host_scalar(k, v):
+    return int(v) if k in _INTS else bool(v) if k in _FLAGS else float(v)
+
+
+def subject_state(st: FitState, b: int) -> FitState:
+    """Subject ``b`` of a stacked state: views of its tensors, and its host
+    values as a single fit's state holds them."""
+    tensors = {f.name: getattr(st, f.name)[b]
+               for f in dataclasses.fields(FitState) if f.name != "host"}
+    host = {k: (np.array(st.host[k][b]) if k in ("q", "scl")
+                else _host_scalar(k, st.host[k][b]))
+            for k in ("q", "scl") + SCALARS}
+    return FitState(host=host, **tensors)
+
+
 class FitChunk:
     """``chunk(state, xdats, subdats, n) -> (state, objs (n, 3), gains (n,),
     valid (n,))``: ``n`` (at most K) outer iterations of this problem from
@@ -208,9 +243,26 @@ class FitChunk:
     the grids coincide). The per-observation updates ``maps``,
     ``scaling_obs``, ``rigid_stats`` and ``rigid_ls`` are methods, as the
     JAX chunk's ``_debug``.
+
+    ``batch=(xs, ys)`` makes the chunk of a geometry-homogeneous batch
+    (:func:`make_batch_chunk`; ``x``, ``y`` are then subject 0's): its state
+    is :func:`stack_states`'s, its data stacked likewise ((B, ...) per
+    observation), its outputs (B, n, ...). Every iteration is written for
+    a leading subject axis of B entries, one for a single fit: the
+    resampling kernels take the B volumes in one launch, every elementwise
+    step runs on the stack, and what reduces a volume or multiplies small
+    matrices (the poses, the 6x6 solves) runs per subject on a single
+    fit's shapes. A decision is taken where some subject needs it, and a
+    per-subject mask keeps every other subject's state as it was (what
+    ``vmap`` makes of a ``lax.cond``); with one subject the masks fall
+    away and the iteration is the single fit's, operation for operation.
     """
 
-    def __init__(self, x, y, sett, K: int, capture: Optional[bool] = None):
+    def __init__(self, x, y, sett, K: int, capture: Optional[bool] = None,
+                 batch=None):
+        self.batched = batch is not None
+        xs, ys = batch if self.batched else ([x], [y])
+        self.B = B = len(xs)
         C = len(x)
         self.C = C
         self.method = method = sett.method
@@ -238,26 +290,35 @@ class FitChunk:
                                    dtype=torch.float64, device=dev)
 
         self.basis = f64(basis)
-        pres, posts, self.subs = chunk_geom(x, y, sett)
-        self.pre, self.post = f64(np.stack(pres)), f64(np.stack(posts))
+        # per-subject geometry, (B, Nobs, 4, 4): the JAX chunk's geoms
+        geoms = [chunk_geom(xb, yb, sett) for xb, yb in zip(xs, ys)]
+        self.subs_of = [g[2] for g in geoms]
+        self.subs = self.subs_of[0]
+        self.pre = f64(np.stack([np.stack(g[0]) for g in geoms]))
+        self.post = f64(np.stack([np.stack(g[1]) for g in geoms]))
         self.suites = [make_obs_suite(x[c][n].po, method) for (c, n) in obs]
         self.src_dims = [tuple(x[c][n].po.dim_yx if self.sr
                                else x[c][n].po.dim_x) for (c, n) in obs]
-        self.taus = [[float(np.float32(o.tau)) for o in x[c]]
-                     for c in range(C)]
+        # tau of every observation of every subject, (Nobs, B): float32
+        # values, as a device operand (the JAX chunk's taus)
+        taus = np.array([[float(np.float32(xb[c][n].tau)) for xb in xs]
+                         for (c, n) in obs])
+        self.tau32 = torch.as_tensor(taus, dtype=torch.float32, device=dev)
+        self.tau64 = f64(taus)
 
         # the schedule holds float32 values, as the JAX loop's device table
         reg = np.atleast_1d(np.asarray(sett.reg_scl, np.float32))
         self.n_sched = int(reg.size)
         self.reg_scl = f64(reg.astype(np.float64))
-        self.lam0 = f64([float(yc.lam0) for yc in y])
+        self.lam0 = f64([[float(yc.lam0) for yc in yb] for yb in ys])
         has_ct = any(o.ct for xc in x for o in xc)
         rho_fixed = (1.0 if has_ct else
                      (float(sett.rho) if sett.rho is not None else None))
-        tau_all = [self.taus[c][n] for (c, n) in obs]
         # rho = rho_scl sqrt(mean tau) / mean lam, the first factor fixed
-        self.rho_fixed = None if rho_fixed is None else f64(rho_fixed)
-        self.rho_num = float(sett.rho_scl) * float(np.sqrt(np.mean(tau_all)))
+        self.rho_fixed = (None if rho_fixed is None
+                          else f64(np.full(B, rho_fixed)))
+        self.rho_num = f64([float(sett.rho_scl) * float(np.sqrt(np.mean(t)))
+                            for t in taus.T])
         self.tol = float(sett.tolerance)
         self.max_iter = int(sett.max_iter)
         self.cadence = max(1, min(int(getattr(sett, "chunk_iters", 16)),
@@ -269,7 +330,8 @@ class FitChunk:
         self.ct = [x[c][n].ct for (c, n) in obs]
 
         if self.do_rigid:
-            self.sub_post = f64(np.stack([s["post"] for s in self.subs]))
+            self.sub_post = f64(np.stack([np.stack([s["post"] for s in subs])
+                                          for subs in self.subs_of]))
             self.sub_suites = [
                 self.suites[i] if s["sub_is_main"]
                 else make_obs_suite(s["po"], method)
@@ -284,13 +346,14 @@ class FitChunk:
             self.steps = f64([0.5 ** k for k in range(_NUM_LS)])
 
         # the chunk's own buffers: the maps and push plans of the current
-        # poses, the outputs, and the index of the next output row
-        self.M = torch.zeros((Nobs, 3, 4), dtype=torch.float32, device=dev)
-        self.plan = torch.zeros((Nobs, PLAN_SIZE), dtype=torch.float32,
+        # poses (observation-major, so that one observation's B maps are
+        # contiguous), the outputs, and the index of the next output row
+        self.M = torch.zeros((Nobs, B, 3, 4), dtype=torch.float32, device=dev)
+        self.plan = torch.zeros((Nobs, B, PLAN_SIZE), dtype=torch.float32,
                                 device=dev)
-        self.objs = torch.zeros((K, 3), dtype=torch.float64, device=dev)
-        self.gains = torch.zeros(K, dtype=torch.float64, device=dev)
-        self.valid = torch.zeros(K, dtype=torch.bool, device=dev)
+        self.objs = torch.zeros((B, K, 3), dtype=torch.float64, device=dev)
+        self.gains = torch.zeros((B, K), dtype=torch.float64, device=dev)
+        self.valid = torch.zeros((B, K), dtype=torch.bool, device=dev)
         self.kidx = torch.zeros(1, dtype=torch.int64, device=dev)
         self.graph = None
         self._bound = None
@@ -307,103 +370,163 @@ class FitChunk:
     def _f64(self, v) -> torch.Tensor:
         return torch.as_tensor(v, dtype=torch.float64, device=self.dev)
 
+    def _set(self, dst: torch.Tensor, new, mask: torch.Tensor) -> None:
+        """``dst`` <- ``new`` for the subjects of ``mask`` (B,); the others
+        keep their values bitwise. One subject: a plain copy (the branch
+        that calls this runs only where the subject needs it)."""
+        if self.B > 1:
+            shape = mask.shape + (1,) * (dst.dim() - 1)
+            new = torch.where(mask.reshape(shape), new, dst)
+        dst.copy_(new)
+
+    def _stacked(self, st: FitState, xdats, subdats):
+        """The state and data with the leading subject axis: a single fit's
+        as views with one subject."""
+        if self.batched:
+            return st, xdats, subdats
+        fields = {f.name: getattr(st, f.name) for f in
+                  dataclasses.fields(st)}
+        v = FitState(**{k: t[None] if isinstance(t, torch.Tensor) else t
+                        for k, t in fields.items()})
+        return (v, [[d[None] for d in xc] for xc in xdats],
+                [None if d is None else d[None] for d in subdats])
+
     def rho_of(self, lams: torch.Tensor) -> torch.Tensor:
         if self.rho_fixed is not None:
             return self.rho_fixed
-        mean = lams[0]
+        mean = lams[:, 0]
         for c in range(1, self.C):
-            mean = mean + lams[c]
-        return self.rho_num / (mean / self.C)
+            mean = mean + lams[:, c]
+        return (mean / self.C).reciprocal() * self.rho_num
+
+    def _maps(self, q, b):
+        """(M, Minv) of subject b's main operators at poses q (Nobs, 6)."""
+        return compose_maps(self.pre[b], se3_expm(self._f64(q), self.basis),
+                            self.post[b])
 
     def maps(self, q):
         """Nested (Ms, Minvs) of the main operators at poses q (Nobs, 6),
-        (3, 4) float32 tensors on the fit's device."""
-        M, Minv = compose_maps(self.pre, se3_expm(self._f64(q), self.basis),
-                               self.post)
+        (3, 4) float32 tensors on the fit's device (subject 0)."""
+        M, Minv = self._maps(q, 0)
         return self.nested(list(M)), self.nested(list(Minv))
 
     # -- the per-observation updates ------------------------------------------
+    # The hooks take one subject's host values (subject 0), as the tests call
+    # them; the iteration calls the stacked forms.
 
     def scaling_obs(self, ys_c, dat_x, M, s0, i):
         """Scaling GN step of observation i at map M from scale s0 (rounded
         to float32 first): the new scale, a 0-d float64 tensor."""
-        c, n = self.obs[i]
-        s0 = self._f64(s0).to(torch.float32).to(torch.float64)
-        y0 = self.suites[i]["project"](ys_c, M)  # pull + blur, no scaling
-        return scaling_gn(y0, dat_x, s0, self.taus[c][n],
-                          self.x[c][n].po.dim_thick, _NUM_LS)[0]
+        return self._scaling(ys_c[None], dat_x[None], M[None],
+                             self._f64(s0).reshape(1), i)[0]
 
     def rigid_stats(self, ys_c, dat_x, q_i, s_i, i, debug=False):
         """GN delta (6,) and data term (0-d) of observation i at pose q_i,
         float64 tensors (and the gradient and Hessian when ``debug``)."""
-        c, n = self.obs[i]
-        sub = self.subs[i]
-        pre, post = self.pre[i], self.sub_post[i]
-        R, dR = se3_dexpm(self._f64(q_i), self.basis)
-        M = compose_maps(pre, R, post)[0]
-        dRq = pre @ dR @ post
-        v = match_stats_device(
-            dat_x, ys_c, M, self._f64(s_i).to(torch.float32),
-            self.taus[c][n], self.sub_suites[i], sub["po"], self.sr,
-            self.coords[i], self.ctcs[i])
-        G, W = v[1:13].reshape(3, 4), v[13:].reshape(6, 10)
-        g, H = _assemble(G[:, 0], G[:, 1:4], W[:, 0], W[:, 1:4], W[:, 4:],
-                         dRq, self.centers[i], self.lkp)
-        delta = gn_delta(g, H)
-        if debug:
-            return delta, v[0], dict(g=g, H=H)
-        return delta, v[0]
+        out = self._rigid_stats(ys_c[None], dat_x[None],
+                                self._f64(q_i)[None],
+                                self._f64(s_i).reshape(1), i, debug)
+        return (out[0][0], out[1][0]) + tuple(out[2:])
 
     def rigid_ls(self, ys_c, dat_x, q_i, s_i, i, delta, ll):
         """Halving line search along -delta from step 1: the first candidate
         that lowers the data term ``ll``, later ones not evaluated; q_i if
         none does. Returns a (6,) float64 tensor."""
+        return self._rigid_ls(ys_c[None], dat_x[None], self._f64(q_i)[None],
+                              self._f64(s_i).reshape(1), i, delta[None],
+                              ll.reshape(1))[0]
+
+    def _scaling(self, ys_c, dat_x, M, s0, i, live=None):
+        """The scaling GN step of observation i for every subject: (B,)."""
+        s0 = s0.to(torch.float32).to(torch.float64)
+        y0 = self.suites[i]["project"](ys_c, M)  # pull + blur, no scaling
         c, n = self.obs[i]
+        return scaling_gn(y0, dat_x, s0, self.tau64[i],
+                          self.x[c][n].po.dim_thick, _NUM_LS, live)[0]
+
+    def _rigid_stats(self, ys_c, dat_x, q_i, s_i, i, debug=False):
+        """GN deltas (B, 6) and data terms (B,) of observation i."""
         sub = self.subs[i]
-        q_i = self._f64(q_i)
-        cands = q_i - self.steps[:, None] * delta
-        Mc = compose_maps(self.pre[i], se3_expm(cands, self.basis),
-                          self.sub_post[i])[0]
-        s32 = self._f64(s_i).to(torch.float32)
+        Ms, dRqs = [], []
+        for b in range(self.B):
+            pre, post = self.pre[b, i], self.sub_post[b, i]
+            R, dR = se3_dexpm(q_i[b], self.basis)
+            Ms.append(compose_maps(pre, R, post)[0])
+            dRqs.append(pre @ dR @ post)
+        v = match_stats_device(
+            dat_x, ys_c, torch.stack(Ms), s_i.to(torch.float32),
+            self.tau64[i], self.sub_suites[i], sub["po"], self.sr,
+            self.coords[i], self.ctcs[i])
+        deltas, extra = [], None
+        for b in range(self.B):
+            G, W = v[b, 1:13].reshape(3, 4), v[b, 13:].reshape(6, 10)
+            g, H = _assemble(G[:, 0], G[:, 1:4], W[:, 0], W[:, 1:4],
+                             W[:, 4:], dRqs[b], self.centers[i], self.lkp)
+            deltas.append(gn_delta(g, H))
+            extra = extra or dict(g=g, H=H)  # subject 0's
+        if debug:
+            return torch.stack(deltas), v[:, 0], extra
+        return torch.stack(deltas), v[:, 0]
+
+    def _rigid_ls(self, ys_c, dat_x, q_i, s_i, i, delta, ll, live=None):
+        """The line searches of observation i for every subject: (B, 6)."""
+        sub = self.subs[i]
+        cands = [q_i[b] - self.steps[:, None] * delta[b]
+                 for b in range(self.B)]
+        Mc = torch.stack([compose_maps(self.pre[b, i],
+                                       se3_expm(cands[b], self.basis),
+                                       self.sub_post[b, i])[0]
+                          for b in range(self.B)], dim=1)  # (NUM_LS, B, ...)
+        cands = torch.stack(cands, dim=1)  # (NUM_LS, B, 6)
+        s32 = s_i.to(torch.float32)
         q_out = q_i.clone()
-        acc = torch.zeros((), dtype=torch.bool, device=self.dev)
+        acc = (torch.zeros(self.B, dtype=torch.bool, device=self.dev)
+               if live is None else ~live)
         for k in range(_NUM_LS):
             def candidate(k=k):
-                llc = match_ll_device(dat_x, ys_c, Mc[k], s32,
-                                      self.taus[c][n], self.sub_suites[i],
-                                      sub["po"], self.sr)
+                llc = match_ll_device(dat_x, ys_c, Mc[k], s32, self.tau64[i],
+                                      self.sub_suites[i], sub["po"], self.sr)
                 ok = llc < ll
-                q_out.copy_(torch.where(ok, cands[k], q_out))
+                if self.B > 1:  # one subject runs this only while ~acc
+                    ok = ok & ~acc
+                q_out.copy_(torch.where(ok[:, None], cands[k], q_out))
                 acc.copy_(acc | ok)
-            cond(~acc, candidate)
+            cond(any_of(~acc), candidate)
         return q_out
 
-    def _rigid_round(self, st, xdats, subdats):
-        """One rigid round over every observation: q updated in place."""
+    def _rigid_round(self, v, xdats, subdats, mask):
+        """One rigid round over every observation of the subjects of
+        ``mask``: q updated in place."""
         dats, deltas, lls = [], [], []
         for i, (c, n) in enumerate(self.obs):
             dat_i = xdats[c][n] if self.subs[i]["sub_is_main"] else subdats[i]
             dats.append(dat_i)
-            d_i, ll_i = self.rigid_stats(st.ys[c], dat_i, st.q[i], st.scl[i],
-                                         i)
+            d_i, ll_i = self._rigid_stats(v.ys[:, c], dat_i, v.q[:, i],
+                                          v.scl[:, i], i)
             deltas.append(d_i)
             lls.append(ll_i)
-        deltas = torch.stack(deltas)
+        deltas = torch.stack(deltas, dim=1)  # (B, Nobs, 6)
         gauge = self.gauge_anchor and self.Nobs > 1
         if gauge:
             # project the pose-gauge common mode out of the GN steps before
             # the line searches (the joint model is gauge-free)
-            deltas = deltas - deltas.mean(dim=0, keepdim=True)
-        qn = torch.stack([self.rigid_ls(st.ys[c], dats[i], st.q[i], st.scl[i],
-                                        i, deltas[i], lls[i])
-                          for i, (c, n) in enumerate(self.obs)])
+            deltas = each(lambda d: d - d.mean(dim=0, keepdim=True), deltas,
+                          2)
+        live = None if self.B == 1 else mask
+        qn = torch.stack([self._rigid_ls(v.ys[:, c], dats[i], v.q[:, i],
+                                         v.scl[:, i], i, deltas[:, i],
+                                         lls[i], live)
+                          for i, (c, n) in enumerate(self.obs)], dim=1)
         if gauge:
             # the line searches may re-introduce a small common mode:
             # re-centre only when it drifts beyond 0.25 (mm / 10 mrad)
-            mq = qn.mean(dim=0)
-            drift = (mq.abs() / self.gauge_scale).max()
-            qn = torch.where(drift > 0.25, qn - mq[None], qn)
-        st.q.copy_(qn)
+            def recentre(q):
+                mq = q.mean(dim=0)
+                drift = (mq.abs() / self.gauge_scale).max()
+                return torch.where(drift > 0.25, q - mq[None], q)
+
+            qn = each(recentre, qn, 2)
+        self._set(v.q, qn, mask)
 
     # -- one outer iteration ------------------------------------------------
 
@@ -411,94 +534,113 @@ class FitChunk:
         """One outer iteration of ``st``, in place, its objective and gain
         in the next output row; frozen (nothing changes, the row is not
         valid) once done or at ``max_iter``, as the JAX loop's
-        ``lax.cond(frozen, ...)``."""
-        frozen = st.done | (st.n_iter >= self.max_iter)
-        cond(~frozen, lambda: self._live(st, xdats, subdats))
+        ``lax.cond(frozen, ...)``: per subject in a batch."""
+        if subdats is None:
+            subdats = [None] * self.Nobs
+        v, xdats, subdats = self._stacked(st, xdats, subdats)
+        alive = ~(v.done | (v.n_iter >= self.max_iter))
+        cond(any_of(alive), lambda: self._live(v, xdats, subdats, alive))
         self.kidx.add_(1)
 
-    def _live(self, st, xdats, subdats):
-        M, Minv = compose_maps(self.pre, se3_expm(st.q, self.basis),
-                               self.post)
-        self.M.copy_(M)
-        for i in range(self.Nobs):
-            self.plan[i].copy_(push_plan(self.M[i], Minv[i], 1,
-                                         self.src_dims[i], self.dim_y))
+    def _live(self, v, xdats, subdats, alive):
+        B = self.B
+        for b in range(B):
+            M, Minv = self._maps(v.q[b], b)
+            self.M[:, b].copy_(M)
+            for i in range(self.Nobs):
+                self.plan[i, b].copy_(push_plan(self.M[i, b], Minv[i], 1,
+                                                self.src_dims[i], self.dim_y))
         Ms = self.nested(list(self.M))
         plans = self.nested(list(self.plan))
-        scls = self.nested(list(st.scl.to(torch.float32)))
+        scls = self.nested(list(v.scl.to(torch.float32).T))
+        taus = self.nested(list(self.tau32))
+
+        mc = alive & (~v.has_cdiags | (v.n_iter % self.cadence == 0))
 
         def refresh_cdiags():
-            st.cdiags.copy_(self.cdiag_fn(Ms, plans, scls, self.taus))
-            st.has_cdiags.fill_(True)
+            self._set(v.cdiags, self.cdiag_fn(Ms, plans, scls, taus), mc)
+            v.has_cdiags.copy_(v.has_cdiags | mc)
 
-        cond(~st.has_cdiags | (st.n_iter % self.cadence == 0), refresh_cdiags)
-        lams = self.reg_scl.index_select(0, st.cnt_scl.view(1)) * self.lam0
+        cond(any_of(mc), refresh_cdiags)
+        lams = (self.reg_scl.index_select(0, v.cnt_scl)[:, None]
+                * self.lam0)
         ys, z, w, jtv, obj = self.admm_body(
-            st.ys, st.z, st.w, xdats, Ms, plans, scls, self.taus, lams,
-            self.rho_of(lams), st.cdiags)
-        st.ys.copy_(ys)
-        st.z.copy_(z)
-        st.w.copy_(w)
-        st.jtv.copy_(jtv)
+            v.ys, v.z, v.w, xdats, Ms, plans, scls, taus, lams,
+            self.rho_of(lams), v.cdiags, None if B == 1 else alive)
+        self._set(v.ys, ys, alive)
+        self._set(v.z, z, alive)
+        self._set(v.w, w, alive)
+        self._set(v.jtv, jtv, alive)
         del ys, z, w, jtv
 
         # gain over the posterior trace (nitorch get_gain)
-        o0 = obj[0]
-        omax = torch.maximum(st.obj_max, o0)
-        omin = torch.minimum(st.obj_min, o0)
+        o0 = obj[:, 0]
+        omax = torch.maximum(v.obj_max, o0)
+        omin = torch.minimum(v.obj_min, o0)
         denom = omax - omin
-        gain = torch.where(st.has_prev,
-                           torch.where(denom > 0, (st.prev_obj - o0) / denom,
+        gain = torch.where(v.has_prev,
+                           torch.where(denom > 0, (v.prev_obj - o0) / denom,
                                        0.0), float("inf"))
         # convergence countdown (reference run.py:103-110)
-        conv_ok = ((st.cnt_scl >= self.n_sched - 1) & (st.cnt_scl_iter > 20)
+        conv_ok = ((v.cnt_scl >= self.n_sched - 1) & (v.cnt_scl_iter > 20)
                    & ((gain.abs() < self.tol)
-                      | (st.n_iter >= self.max_iter - 1)))
-        cd0 = torch.where(conv_ok, st.countdown0 - 1, 6)
+                      | (v.n_iter >= self.max_iter - 1)))
+        cd0 = torch.where(conv_ok, v.countdown0 - 1, 6)
         done_now = conv_ok & (cd0 == 0)
-        cond(~done_now, lambda: self._tail(st, xdats, subdats, Ms, gain))
+        m = alive & ~done_now
+        cond(any_of(m), lambda: self._tail(v, xdats, subdats, Ms, gain, m))
 
-        st.cnt_scl_iter.add_(1)
-        st.countdown0.copy_(cd0)
-        st.n_iter.add_(1)
-        st.done.copy_(st.done | done_now)
-        st.prev_obj.copy_(o0)
-        st.obj_max.copy_(omax)
-        st.obj_min.copy_(omin)
-        st.has_prev.fill_(True)
-        self.objs.index_copy_(0, self.kidx, obj.view(1, 3))
-        self.gains.index_copy_(0, self.kidx, gain.view(1))
-        self.valid.index_fill_(0, self.kidx, True)
+        self._set(v.cnt_scl_iter, v.cnt_scl_iter + 1, alive)
+        self._set(v.countdown0, cd0, alive)
+        self._set(v.n_iter, v.n_iter + 1, alive)
+        self._set(v.done, v.done | done_now, alive)
+        self._set(v.prev_obj, o0, alive)
+        self._set(v.obj_max, omax, alive)
+        self._set(v.obj_min, omin, alive)
+        v.has_prev.copy_(v.has_prev | alive)
+        if B > 1:  # a frozen subject's row stays empty
+            obj = torch.where(alive[:, None], obj, 0.0)
+            gain = torch.where(alive, gain, 0.0)
+        self.objs.index_copy_(1, self.kidx, obj.view(B, 1, 3))
+        self.gains.index_copy_(1, self.kidx, gain.view(B, 1))
+        self.valid.index_copy_(1, self.kidx, alive.view(B, 1))
 
-    def _tail(self, st, xdats, subdats, Ms, gain):
+    def _tail(self, v, xdats, subdats, Ms, gain, m):
         """Scaling, rigid and the schedule step of a live iteration that
-        has not converged."""
+        has not converged, for the subjects of ``m``."""
+        live = None if self.B == 1 else m
         if self.do_scaling:
             for i, (c, n) in enumerate(self.obs):
                 if not self.ct[i]:
-                    st.scl[i].copy_(self.scaling_obs(
-                        st.ys[c], xdats[c][n], Ms[c][n], st.scl[i], i))
+                    self._set(v.scl[:, i], self._scaling(
+                        v.ys[:, c], xdats[c][n], Ms[c][n], v.scl[:, i], i,
+                        live), m)
         if self.do_rigid:
-            cond((st.n_iter > 0) & (st.n_iter % self.rigid_mod == 0),
-                 lambda: self._rigid_round(st, xdats, subdats))
+            mr = m & (v.n_iter > 0) & (v.n_iter % self.rigid_mod == 0)
+            cond(any_of(mr),
+                 lambda: self._rigid_round(v, xdats, subdats, mr))
         # schedule step (reference run.py:140-155)
-        sch_ok = ((st.cnt_scl + 1 < self.n_sched) & (st.cnt_scl_iter > 16)
+        sch_ok = ((v.cnt_scl + 1 < self.n_sched) & (v.cnt_scl_iter > 16)
                   & (gain.abs() < 1e-3))
-        cd1 = torch.where(sch_ok, st.countdown1 - 1, 6)
-        stepped = sch_ok & (cd1 == 0)
-        st.countdown1.copy_(torch.where(stepped, 6, cd1))
+        cd1 = torch.where(sch_ok, v.countdown1 - 1, 6)
+        stepped = sch_ok & (cd1 == 0) & m
+        self._set(v.countdown1, torch.where(stepped, 6, cd1), m)
 
         def step_schedule():
             # z approximates lam D y: rescale it by lam'/lam at the step
-            # (w by (lam'/lam)(rho'/rho) = 1), as the JAX loop does
-            nxt = torch.clamp(st.cnt_scl + 1, max=self.n_sched - 1)
-            fac = (self.reg_scl.index_select(0, nxt.view(1))
-                   / self.reg_scl.index_select(0, st.cnt_scl.view(1)))
-            st.z.mul_(fac.to(torch.float32))
-            st.cnt_scl.add_(1)
-            st.cnt_scl_iter.zero_()
+            # (w by (lam'/lam)(rho'/rho) = 1), as the JAX loop does; a
+            # subject that does not step is multiplied by 1
+            nxt = torch.clamp(v.cnt_scl + 1, max=self.n_sched - 1)
+            fac = (self.reg_scl.index_select(0, nxt)
+                   / self.reg_scl.index_select(0, v.cnt_scl))
+            if self.B > 1:
+                fac = torch.where(stepped, fac, 1.0)
+            v.z.mul_(fac.to(torch.float32).reshape((-1,) + (1,) * 5))
+            self._set(v.cnt_scl, v.cnt_scl + 1, stepped)
+            self._set(v.cnt_scl_iter, torch.zeros_like(v.cnt_scl_iter),
+                      stepped)
 
-        cond(stepped, step_schedule)
+        cond(any_of(stepped), step_schedule)
 
     # -- the chunk ----------------------------------------------------------
 
@@ -521,7 +663,9 @@ class FitChunk:
                 self.graph.replay()
             else:
                 self.iterate(st, xdats, subdats)
-        return st, self.objs[:n], self.gains[:n], self.valid[:n]
+        if self.batched:
+            return st, self.objs[:, :n], self.gains[:, :n], self.valid[:, :n]
+        return st, self.objs[0, :n], self.gains[0, :n], self.valid[0, :n]
 
     def _capture(self, st, xdats, subdats):
         """Warm every branch up on a copy of the state (every kernel, every
@@ -538,23 +682,30 @@ class FitChunk:
     def read(self, st: FitState, n: int) -> dict:
         """The host's one read of a chunk of ``n`` iterations: objs (n, 3),
         gains (n,), valid (n,), q, scl and the state's scalars, packed into
-        one float64 vector; also written into ``st.host``."""
-        parts = [self.objs[:n].reshape(-1), self.gains[:n],
-                 self.valid[:n].to(torch.float64), st.q.reshape(-1), st.scl]
-        parts += [getattr(st, k).to(torch.float64).reshape(1)
+        one float64 vector; also written into ``st.host``. A batched chunk
+        reads every subject at once: objs (B, n, 3), gains and valid (B,
+        n), q (B, Nobs, 6), scl (B, Nobs) and each scalar (B,) arrays."""
+        B = self.B
+        parts = [self.objs[:, :n].reshape(-1), self.gains[:, :n].reshape(-1),
+                 self.valid[:, :n].to(torch.float64).reshape(-1),
+                 st.q.reshape(-1), st.scl.reshape(-1)]
+        parts += [getattr(st, k).to(torch.float64).reshape(-1)
                   for k in SCALARS]
         v = to_host(torch.cat(parts))
+        lead = (B,) if self.batched else ()
         out, j = {}, 0
-        for name, size in (("objs", 3 * n), ("gains", n), ("valid", n),
-                           ("q", st.q.numel()), ("scl", st.scl.numel())):
-            out[name] = v[j:j + size]
+        for name, shape in (("objs", lead + (n, 3)), ("gains", lead + (n,)),
+                            ("valid", lead + (n,)), ("q", tuple(st.q.shape)),
+                            ("scl", tuple(st.scl.shape))):
+            size = int(np.prod(shape))
+            out[name] = v[j:j + size].reshape(shape)
             j += size
-        out["objs"] = out["objs"].reshape(n, 3)
         out["valid"] = out["valid"] != 0
-        out["q"] = out["q"].reshape(tuple(st.q.shape))
-        for k, val in zip(SCALARS, v[j:]):
-            out[k] = (int(val) if k in _INTS else bool(val) if k in _FLAGS
-                      else float(val))
+        for i, k in enumerate(SCALARS):
+            val = v[j + i * B:j + (i + 1) * B]
+            dtype = np.int64 if k in _INTS else bool if k in _FLAGS else None
+            out[k] = (val.astype(dtype) if dtype else val) if self.batched \
+                else _host_scalar(k, val[0])
         st.host.update({k: out[k] for k in ("q", "scl") + SCALARS})
         return out
 
@@ -566,3 +717,16 @@ def make_fit_chunk(x, y, sett, K: int, capture: Optional[bool] = None
     ``capture=False`` runs it uncaptured on the card (tests and
     ``chip_smoke.py`` only; the fit captures on a CUDA device)."""
     return FitChunk(x, y, sett, K, capture)
+
+
+def make_batch_chunk(xs, ys, sett, K: int, capture: Optional[bool] = None
+                     ) -> FitChunk:
+    """The K-iteration chunk of a geometry-homogeneous batch (``xs``,
+    ``ys``: the subjects' structs on one device; ``sett`` subject 0's):
+    one chunk, built from subject 0, every subject's state, data, taus,
+    lam0 and geometry stacked on a leading subject axis
+    (:func:`stack_states`), the counterpart of ``unires_tpu.parallel.
+    fit_batch.make_batch_chunk`` on one device (its ``vmap``). On the card
+    it is one captured graph for all the subjects, read once per chunk.
+    With one subject the iteration is the single fit's."""
+    return FitChunk(xs[0], ys[0], sett, K, capture, batch=(xs, ys))

@@ -31,6 +31,7 @@ from ..models.proj_op import ProjOp, proj_info
 from ..ops.conv import blur_down_sep, blur_up_sep
 from ..ops.resample import affine_to_M, pull
 from ..ops.scaling import apply_scaling
+from ..utils.batch import each, sum_f64
 from ..utils.host import to_host
 
 # symmetric 3x3 -> 6-vector index map (reference _update.py:564)
@@ -144,7 +145,9 @@ def gn_delta(g: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
 def match_stats_device(dat_x, dat_y, M, scl, tau, suite, po: ProjOp, sr,
                        coords, ctc):
     """Device part of one GN round: a (1 + 3*4 + 6*10,) float64 tensor
-    (ll, moments of G_0..G_2, moments of W_0..W_5)."""
+    (ll, moments of G_0..G_2, moments of W_0..W_5). A batch of volumes
+    (B, ...) at maps (B, 3, 4), scales and taus (B,) gives (B, 73), each
+    subject's sums and moments taken alone (``utils.batch.each``)."""
     dat_yx = suite["pull"](dat_y, M)
     if sr:
         dat_yx = blur_down_sep(dat_yx, po.smo_ker_1d, po.ratio)
@@ -152,14 +155,17 @@ def match_stats_device(dat_x, dat_y, M, scl, tau, suite, po: ProjOp, sr,
     gr = suite["pull_grad"](dat_y, M)  # (dim..., 3), on the pre-blur grid
     msk = dat_x != 0
     res = torch.where(msk, dat_x - dat_yx, 0.0)
-    ll = (0.5 * tau) * res.square().sum(dtype=torch.float64)
+    ll = (0.5 * tau) * sum_f64(res.square())
     diff = torch.where(msk & (dat_yx != 0), dat_yx - dat_x, 0.0)
     if sr:
         diff = blur_up_sep(diff, po.smo_ker_1d, po.ratio)
-    G = torch.stack([gr[..., d] * diff for d in range(3)])
-    W = torch.stack([gr[..., d1] * gr[..., d2] * ctc for d1, d2 in _PAIRS])
-    return torch.cat([ll.reshape(1), _moments(G, coords, 1).reshape(-1),
-                      _moments(W, coords, 2).reshape(-1)])
+    G = torch.stack([gr[..., d] * diff for d in range(3)], dim=-4)
+    W = torch.stack([gr[..., d1] * gr[..., d2] * ctc for d1, d2 in _PAIRS],
+                    dim=-4)
+    moments = each(lambda g: _moments(g, coords, 1).reshape(-1), G, 4)
+    return torch.cat([ll[..., None], moments,
+                      each(lambda w: _moments(w, coords, 2).reshape(-1), W,
+                           4)], dim=-1)
 
 
 def split_stats(v: np.ndarray):
@@ -170,13 +176,14 @@ def split_stats(v: np.ndarray):
 
 
 def match_ll_device(dat_x, dat_y, M, scl, tau, suite, po: ProjOp, sr):
-    """The data term at map ``M`` (float64 device scalar)."""
+    """The data term at map ``M`` (float64 device scalar; (B,) for a batch
+    as :func:`match_stats_device`'s)."""
     dat_yx = suite["pull"](dat_y, M)
     if sr:
         dat_yx = blur_down_sep(dat_yx, po.smo_ker_1d, po.ratio)
         dat_yx = apply_scaling(dat_yx, scl, po.dim_thick)
     res = torch.where(dat_x != 0, dat_x - dat_yx, 0.0)
-    return (0.5 * tau) * res.square().sum(dtype=torch.float64)
+    return (0.5 * tau) * sum_f64(res.square())
 
 
 def ctc_volume(po: ProjOp, dim, device):

@@ -31,30 +31,29 @@ from ..geometry import fov_centre, rigid_from_q
 from ..models.forward import make_obs_suite, obs_dyn_args
 from ..models.proj_op import ProjOp
 from ..ops.scaling import apply_scaling, even_slices, odd_slices
+from ..utils.batch import any_of, sum_f64
 from ..utils.graph import cond
 from ..utils.host import to_host
 
 
-def _f64(v: torch.Tensor) -> torch.Tensor:
-    return v.sum(dtype=torch.float64)
-
-
 def _sums(dat_y0, dat_x, s, axis) -> torch.Tensor:
     """(sum res^2, sum y+(x+ - y+), sum y-(x- - y-), sum y+^2, sum y-^2)
-    at scaling ``s``, float64 on the data's device."""
+    at scaling ``s``, float64 on the data's device: (5,), or (B, 5) for a
+    batch of volumes (B, ...) at scales (B,), each subject summed alone."""
     dat_y = apply_scaling(dat_y0, s, axis)
     msk = dat_x != 0
     res = torch.where(msk, dat_x - dat_y, 0.0)
     y = torch.where(msk, dat_y, 0.0)
     ye, yo = even_slices(y, axis), odd_slices(y, axis)
     xe, xo = even_slices(dat_x, axis), odd_slices(dat_x, axis)
-    return torch.stack([_f64(res * res), _f64(ye * (xe - ye)),
-                        _f64(yo * (xo - yo)), _f64(ye * ye), _f64(yo * yo)])
+    return torch.stack([sum_f64(res * res), sum_f64(ye * (xe - ye)),
+                        sum_f64(yo * (xo - yo)), sum_f64(ye * ye),
+                        sum_f64(yo * yo)], dim=-1)
 
 
 def _res2(dat_y0, dat_x, s, axis) -> torch.Tensor:
     res = torch.where(dat_x != 0, dat_x - apply_scaling(dat_y0, s, axis), 0.0)
-    return _f64(res * res)
+    return sum_f64(res * res)
 
 
 def scaling_stats(dat_y0, dat_x, s, tau, axis) -> np.ndarray:
@@ -64,8 +63,8 @@ def scaling_stats(dat_y0, dat_x, s, tau, axis) -> np.ndarray:
     return np.array([0.5 * tau * ll2, tau * (sm - sp), tau * (he + ho)])
 
 
-def scaling_gn(dat_y0, dat_x, s0: torch.Tensor, tau: float, axis: int,
-               num_ls: int = 6):
+def scaling_gn(dat_y0, dat_x, s0: torch.Tensor, tau, axis: int,
+               num_ls: int = 6, live=None):
     """One Gauss-Newton step with a halving line search from step 1, on
     the device: (s, ll), 0-d float64 tensors, from ``s0`` (0-d float64 on
     the data's device), with nothing read back under a capture. The
@@ -73,23 +72,31 @@ def scaling_gn(dat_y0, dat_x, s0: torch.Tensor, tau: float, axis: int,
     the first whose data term falls below the current one is taken, later
     ones not evaluated (the JAX loop's ``while_loop``); none: ``s0`` and the
     current data term. With ``num_ls = 0`` the full step is taken unchecked
-    and ll is the current one."""
-    ll2, sp, sm, he, ho = _sums(dat_y0, dat_x, s0, axis).unbind()
+    and ll is the current one.
+
+    A batch: volumes (B, ...), ``s0`` and ``tau`` (B,) float64, (s, ll)
+    (B,); a candidate is evaluated while some subject has accepted none,
+    each subject accepting its first (``vmap`` of the JAX loop), and
+    ``live`` (B,) bool leaves the other subjects at ``s0``."""
+    ll2, sp, sm, he, ho = _sums(dat_y0, dat_x, s0, axis).unbind(-1)
     ll0 = 0.5 * tau * ll2
     delta = tau * (sm - sp) / torch.clamp(tau * (he + ho), min=1e-30)
     if num_ls == 0:
         return s0 - delta, ll0
     s, ll = s0.clone(), ll0.clone()
-    acc = torch.zeros((), dtype=torch.bool, device=s0.device)
+    acc = (torch.zeros(s0.shape, dtype=torch.bool, device=s0.device)
+           if live is None else ~live)
     for k in range(num_ls):
         def candidate(k=k):
             cand = s0 - 0.5 ** k * delta
             llc = 0.5 * tau * _res2(dat_y0, dat_x, cand, axis)
             ok = llc < ll0
+            if ok.numel() > 1:  # one subject runs this only while ~acc
+                ok = ok & ~acc
             s.copy_(torch.where(ok, cand, s))
             ll.copy_(torch.where(ok, llc, ll))
             acc.copy_(acc | ok)
-        cond(~acc, candidate)
+        cond(any_of(~acc), candidate)
     return s, ll
 
 
