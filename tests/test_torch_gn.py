@@ -92,6 +92,19 @@ def test_update_scaling_matches_jax():
         assert llt == pytest.approx(llj, rel=1e-4)
 
 
+def test_update_scaling_matches_jax_at_a_pose():
+    """At a non-zero rigid_q both packages project through the uncentred
+    expm(q) (the centre-conjugated pose moves the volume ~0.9 mm here)."""
+    _, (xj, yj, sj), (xt, yt, st) = _problem(scl_true=0.15, noise=5.0)
+    q = np.array([0.5, -0.3, 0.2, 0.03, -0.02, 0.025])
+    xj[0][0].rigid_q, xt[0][0].rigid_q = q.copy(), q.copy()
+    for _ in range(2):
+        xj, llj = jsc.update_scaling(xj, yj, sj)
+        xt, llt = tsc.update_scaling(xt, yt, st)
+        _close(xt[0][0].po.scl, xj[0][0].po.scl)
+        assert llt == pytest.approx(llj, rel=1e-4)
+
+
 def test_scaling_gradient_matches_finite_difference():
     _, _, (x, y, sett) = _problem(scl_true=0.12)
     o = x[0][0]

@@ -571,6 +571,31 @@ def test_yardstick_matches_plain(name, mat, out_dim, kernel):
     _close(got.numpy(), want.numpy(), np.abs(want.numpy()).max())
 
 
+@pytest.mark.parametrize("kernel", ["pull", "push", "pull_grad"])
+def test_batched_yardstick_matches_plain(kernel):
+    """The yardstick of a batch, one library call with N = 2 over two
+    volumes each at its own map, against the plain version per volume."""
+    import chip_smoke
+
+    Ms = [tr.affine_to_M(MAPS[2][1]),
+          tr.affine_to_M(affine_matrix_classic([-0.5, 0.3, 0.2, -0.04, 0.02,
+                                                0.03]))]
+    out = MAPS[2][2]
+    shape, dst = (out, IN_DIM) if kernel == "push" else (IN_DIM, out)
+    inp = torch.from_numpy(np.stack([_vol(shape, 20 + b) for b in (0, 1)]))
+    fn = {"pull": tr.pull_plain, "push": tr.push_plain,
+          "pull_grad": tr.pull_grad_plain}[kernel]
+    want = torch.stack([fn(inp[b], Ms[b], dst) for b in (0, 1)])
+    call, to_plain, _ = chip_smoke.yardstick(kernel, inp, Ms, dst)
+    got = to_plain(call())
+    assert got.shape == want.shape
+    if kernel == "pull_grad":
+        keep = torch.stack([chip_smoke.off_knots(M, dst, "cpu")
+                            for M in Ms])[..., None]
+        got, want = got * keep, want * keep
+    _close(got.numpy(), want.numpy(), np.abs(want.numpy()).max())
+
+
 # --- dispatch ---------------------------------------------------------------
 
 def test_wrappers_refuse_devices_without_kernel():

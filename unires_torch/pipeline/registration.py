@@ -268,10 +268,15 @@ class _NMILevel:
         scale = torch.clamp(self.mmax - self.mmin, min=1e-12)
         ct = []
         for f, m in zip(self.fn, mn):
-            # d soft_weights(m)[b, i] / d m_i: -sgn(m_i - b) where the
-            # weight's clamp passes (1 - |m_i - b| >= 0), else 0
+            # d soft_weights(m)[b, i] / d m_i as JAX differentiates the
+            # JAX package's max(0, 1 - |m_i - b|): -sign(m_i - b), the
+            # sign +1 at m_i = b, halved where the max ties (|m_i - b| =
+            # 1), 0 beyond. Ties are common on a coarse level: at the
+            # identity map every moved intensity is a voxel's, and the
+            # mover's extremes normalise to the end bins exactly.
             d = m[None, :] - centers[:, None]
-            dW = torch.where(1.0 - torch.abs(d) >= 0.0, -torch.sgn(d), 0.0)
+            dW = (torch.where(d >= 0.0, -0.5, 0.5)
+                  * (torch.sign(1.0 - torch.abs(d)) + 1.0))
             g_mn = ((gJ.T @ _soft_weights(f)) * dW).sum(dim=0)
             ct.append(g_mn * (_BINS - 1) / scale)
         return L, torch.cat(ct)

@@ -14,20 +14,15 @@ skipped (reference :286-288). Sums are taken in float64. The step
 (:func:`scaling_gn`) decides on the device, its candidates evaluated in turn
 until one is accepted (``utils.graph.cond``); the fit chunk runs it in its
 graph, the host API (:func:`scaling_step`, :func:`update_scaling`) reads
-each decision and the result.
-
-One deliberate difference from the JAX package: its host ``update_scaling``
-builds the pose as the uncentred ``expm(q)`` (unires_tpu/solvers/
-scaling_gn.py:100), while the fit uses the centre-conjugated pose
-(``geometry.rigid_from_q``) everywhere else; the two agree only at q = 0.
-Here the pose is the fit's.
+each decision and the result. The host ``update_scaling`` builds the pose
+as the JAX package's does: the uncentred ``expm(q)``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..geometry import fov_centre, rigid_from_q
+from ..geometry import expm
 from ..models.forward import make_obs_suite, obs_dyn_args
 from ..models.proj_op import ProjOp
 from ..ops.scaling import apply_scaling, even_slices, odd_slices
@@ -132,9 +127,8 @@ def update_scaling(x, y, sett, max_niter_gn: int = 1, num_linesearch: int = 6):
                 continue
             project = make_obs_suite(o.po, sett.method)["project"]
             rigid = o.po.rigid
-            if o.rigid_q is not None and sett.rigid_basis is not None:
-                rigid = rigid_from_q(o.rigid_q, sett.rigid_basis,
-                                     fov_centre(o.po.mat_y, o.po.dim_y))
+            if o.rigid_q is not None:
+                rigid = expm(o.rigid_q, sett.rigid_basis)
             M, _ = obs_dyn_args(o.po, "super-resolution", rigid)
             dat_y0 = project(y[c].dat, M)
             tau = float(np.float32(o.tau))
