@@ -627,12 +627,12 @@ def _measure(name, case, inp, Mc, out_dim, kw):
                 bound_by=bound_by, library_ms=lib_ms, library_call=lib_call)
 
 
-def _measure_batch(name, device="cuda"):
-    """Phase 3's batched launch of ``name``: KERNEL_BATCH volumes at the
-    fit's shapes, each at its own map (push: its own plan), in one launch,
-    against the unbatched launches and the plain version (bitwise); its
-    device ms beside that of the unbatched launches. Prints a line and
-    returns the record."""
+def batch_case(name, device="cuda"):
+    """Phase 3's batched case of ``name``: KERNEL_BATCH volumes at the fit's
+    shapes, each at its own pose. Returns (inp, Ms, kw, out_dim, plain):
+    the stacked input, the (B, 3, 4) host maps, the batched launch's
+    keywords (push: its plans on the device as ``Minv``, one per volume),
+    the output grid, and ``plain(b)``, volume b's plain result."""
     rng = np.random.default_rng(7)
     B = KERNEL_BATCH
     pos = []
@@ -642,25 +642,35 @@ def _measure_batch(name, device="cuda"):
                        rigid=affine_matrix_classic(p), prof_ip=2, prof_tp=0)
         pos.append(obs_dyn_args(po, "super-resolution"))
     Ms = np.stack([M for M, _ in pos])
-    Md = torch.from_numpy(Ms).to(device)
-    dim_yx = po.dim_yx
+    dim_yx = tuple(po.dim_yx)
     if name == "push":
         Minvs = np.stack([Mi for _, Mi in pos])
-        inp = torch.from_numpy(rng.random((B,) + tuple(dim_yx),
+        inp = torch.from_numpy(rng.random((B,) + dim_yx,
                                           dtype=np.float32)).to(device)
-        plans = push_plan(Md, torch.from_numpy(Minvs).to(device), 1,
-                          tuple(dim_yx), DIM_Y)
-        batched = lambda: push(inp, Md, DIM_Y, Minv=plans)  # noqa: E731
-        one = lambda b: push(inp[b], Md[b], DIM_Y, Minv=plans[b])  # noqa
-        plain = lambda b: push_plain(inp[b], Ms[b], DIM_Y,  # noqa: E731
-                                     Minv=Minvs[b])
-    else:
-        fn, fn_plain = FUNCS[name]
-        inp = torch.from_numpy(rng.random((B,) + DIM_Y,
-                                          dtype=np.float32)).to(device)
-        batched = lambda: fn(inp, Md, dim_yx)  # noqa: E731
-        one = lambda b: fn(inp[b], Md[b], dim_yx)  # noqa: E731
-        plain = lambda b: fn_plain(inp[b], Ms[b], dim_yx)  # noqa: E731
+        plans = push_plan(torch.from_numpy(Ms).to(device),
+                          torch.from_numpy(Minvs).to(device), 1, dim_yx,
+                          DIM_Y)
+        return (inp, Ms, dict(Minv=plans), DIM_Y,
+                lambda b: push_plain(inp[b], Ms[b], DIM_Y, Minv=Minvs[b]))
+    fn_plain = FUNCS[name][1]
+    inp = torch.from_numpy(rng.random((B,) + DIM_Y,
+                                      dtype=np.float32)).to(device)
+    return (inp, Ms, {}, dim_yx,
+            lambda b: fn_plain(inp[b], Ms[b], dim_yx))
+
+
+def _measure_batch(name, device="cuda"):
+    """Phase 3's batched launch of ``name`` (``batch_case``) in one launch,
+    against the unbatched launches and the plain version (bitwise); its
+    device ms beside that of the unbatched launches. Prints a line and
+    returns the record."""
+    B = KERNEL_BATCH
+    inp, Ms, kw, out_dim, plain = batch_case(name, device)
+    Md = torch.from_numpy(Ms).to(device)
+    fn = FUNCS[name][0]
+    batched = lambda: fn(inp, Md, out_dim, **kw)  # noqa: E731
+    one = lambda b: fn(inp[b], Md[b], out_dim,  # noqa: E731
+                       **{k: v[b] for k, v in kw.items()})
     unbatched = lambda: [one(b) for b in range(B)]  # noqa: E731
     got = batched()
     want = torch.stack(unbatched())
@@ -672,7 +682,6 @@ def _measure_batch(name, device="cuda"):
               _max_err(got, ref, scale, f"{label} vs plain"))
     require(float(want.abs().max()) > 0.0, f"{label}: result is 0")
     ms_b, ms_u = _time_ms(batched), _time_ms(unbatched)
-    out_dim = DIM_Y if name == "push" else dim_yx
     # the bound of B volumes: B times one volume's (bytes and operations)
     bnd, bound_by = bound_ms(name, inp[0], out_dim)
     bnd *= B

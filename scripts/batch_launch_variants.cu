@@ -1,16 +1,18 @@
 // Other mappings of a batched launch of pull, push and pull_grad, timed
 // against the port's by scripts/cuda_batch_variants.py. Each computes every
-// output with the port's tile code (pull_tile, push_target, pull_grad_tile),
+// output with the port's tile code (pull_tile, push_tile, pull_grad_tile),
 // so each must equal the unbatched launches to the bit:
 //   zfold  the batch folded into the grid's z with the volumes slowest:
 //          block z = b * zblocks + (x row block), b split off by a division
 //          (the port's first batched kernels);
 //   inter  the same with the volumes fastest: block z = (x row block) * B
 //          + b, so the blocks of one position in the B volumes run side by
-//          side.
-// The port's batched kernels run one volume's launch grid, each thread its
-// output position in every volume in turn. This file includes the port's
-// source, so the variants share its helpers.
+//          side (pull and pull_grad; the port's push is this mapping);
+//   loop   push: one volume's launch grid, each thread its tile in every
+//          volume in turn (the mapping of pull's batched launch).
+// The port's batched pull and pull_grad run one volume's launch grid, each
+// thread its output position in every volume in turn. This file includes
+// the port's source, so the variants share its helpers.
 
 #include "../unires_torch/csrc/resample.cu"
 
@@ -41,29 +43,32 @@ __global__ void __launch_bounds__(kLanesZ * kRowsY)
                           nx, ny, nz, ox, oy, oz, Box(), zb);
 }
 
+constexpr int kPushThreads = kPushLanesZ * kPushLanesY * kPushLanesX;
+
 template <int ORDER>
-__global__ void __launch_bounds__(kLanesZ * kRowsY)
+__global__ void __launch_bounds__(kPushThreads)
     push_zfold(const float* __restrict__ vals, float* __restrict__ out,
                const float* __restrict__ plan, int sx, int sy, int sz, int tx,
                int ty, int tz, int batch, long long vstride) {
-  const int b = blockIdx.z / tx;
-  push_target<ORDER, false>(vals + b * vstride,
-                            out + b * ((long long)tx * ty * tz),
-                            plan + 32 * b, sx, sy, sz, tx, ty, tz, -1, -1, -1,
-                            Box(), blockIdx.z - b * tx);
+  const int xblocks =
+      (tx + kPushLanesX * kPushTX - 1) / (kPushLanesX * kPushTX);
+  const int b = blockIdx.z / xblocks;
+  push_tile<ORDER, false, kPushTX, kPushTY, kPushTZ, kPushLanesZ,
+            kPushLanesY, kPushLanesX>(
+      vals + b * vstride, out + b * ((long long)tx * ty * tz), plan + 32 * b,
+      sx, sy, sz, tx, ty, tz, -1, -1, -1, Box(), blockIdx.z - b * xblocks);
 }
 
 template <int ORDER>
-__global__ void __launch_bounds__(kLanesZ * kRowsY)
-    push_inter(const float* __restrict__ vals, float* __restrict__ out,
-               const float* __restrict__ plan, int sx, int sy, int sz, int tx,
-               int ty, int tz, int batch, long long vstride) {
-  const int vi = blockIdx.z / batch;
-  const int b = blockIdx.z - vi * batch;
-  push_target<ORDER, false>(vals + b * vstride,
-                            out + b * ((long long)tx * ty * tz),
-                            plan + 32 * b, sx, sy, sz, tx, ty, tz, -1, -1, -1,
-                            Box(), vi);
+__global__ void __launch_bounds__(kPushThreads)
+    push_loop(const float* __restrict__ vals, float* __restrict__ out,
+              const float* __restrict__ plan, int sx, int sy, int sz, int tx,
+              int ty, int tz, int batch, long long vstride) {
+  for (int b = 0; b < batch; ++b)
+    push_tile<ORDER, false, kPushTX, kPushTY, kPushTZ, kPushLanesZ,
+              kPushLanesY, kPushLanesX>(
+        vals + b * vstride, out + b * ((long long)tx * ty * tz),
+        plan + 32 * b, sx, sy, sz, tx, ty, tz, -1, -1, -1, Box(), blockIdx.z);
 }
 
 __global__ void __launch_bounds__(kGradLanesZ * kGradRowsY)
@@ -122,10 +127,10 @@ int variant_push(int variant, const float* vals, float* out,
                  const float* plan, int sx, int sy, int sz, int tx, int ty,
                  int tz, int order, int batch, long long vstride,
                  void* stream) {
-  const dim3 block(kLanesZ, kRowsY);
-  const dim3 grid((unsigned)((tz + kLanesZ - 1) / kLanesZ),
-                  (unsigned)((ty + kRowsY - 1) / kRowsY),
-                  (unsigned)(tx * batch));
+  const dim3 block(kPushLanesZ, kPushLanesY, kPushLanesX);
+  dim3 grid = push_grid<kPushTX, kPushTY, kPushTZ, kPushLanesZ,
+                        kPushLanesY, kPushLanesX>(tx, ty, tz);
+  if (variant == 0) grid.z *= (unsigned)batch;
   cudaStream_t s = (cudaStream_t)stream;
   if (variant == 0 && order == 0)
     push_zfold<0><<<grid, block, 0, s>>>(vals, out, plan, sx, sy, sz, tx, ty,
@@ -134,11 +139,11 @@ int variant_push(int variant, const float* vals, float* out,
     push_zfold<1><<<grid, block, 0, s>>>(vals, out, plan, sx, sy, sz, tx, ty,
                                         tz, batch, vstride);
   else if (order == 0)
-    push_inter<0><<<grid, block, 0, s>>>(vals, out, plan, sx, sy, sz, tx, ty,
-                                         tz, batch, vstride);
+    push_loop<0><<<grid, block, 0, s>>>(vals, out, plan, sx, sy, sz, tx, ty,
+                                        tz, batch, vstride);
   else
-    push_inter<1><<<grid, block, 0, s>>>(vals, out, plan, sx, sy, sz, tx, ty,
-                                         tz, batch, vstride);
+    push_loop<1><<<grid, block, 0, s>>>(vals, out, plan, sx, sy, sz, tx, ty,
+                                        tz, batch, vstride);
   return (int)cudaGetLastError();
 }
 

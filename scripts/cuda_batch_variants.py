@@ -7,10 +7,13 @@ Builds ``scripts/batch_launch_variants.cu`` (which includes the port's
 ``unires_torch/csrc/resample.cu``) with the port's nvcc flags into
 ``build/batchvar/``. At the fit's shapes of ``chip_smoke.py`` phase 3 (B =
 3 volumes, each at its own map, as ``_measure_batch`` makes them) it runs
-three unbatched launches, the port's batched launch (one volume's launch
-grid, each thread its output in every volume in turn) and the variants
-``zfold`` and ``inter`` (the batch folded into the grid's z), requires every batched result to equal the
-unbatched launches to the bit, and prints each one's device ms
+three unbatched launches, the port's batched launch (pull and pull_grad:
+one volume's launch grid, each thread its output in every volume in turn;
+push: the batch folded into the grid's z, the volumes fastest) and the
+variants (``zfold``: the batch folded into the grid's z, the volumes
+slowest; ``inter``: the volumes fastest; ``loop``: push in one volume's
+launch grid, each thread over the volumes), requires every batched result
+to equal the unbatched launches to the bit, and prints each one's device ms
 (``chip_smoke._time_ms``: CUDA events around each call, L2 flushed before
 it), ``reps`` times in turns.
 """
@@ -36,7 +39,9 @@ from unires_torch.ops import resample as tr  # noqa: E402
 
 SOURCE = HERE / "scripts" / "batch_launch_variants.cu"
 LIB = HERE / "build" / "batchvar" / "libbatch_launch_variants.so"
-VARIANTS = ("zfold", "inter")
+# each kernel's variants of batch_launch_variants.cu, by index
+VARIANTS = {"pull": ("zfold", "inter"), "push": ("zfold", "loop"),
+            "pull_grad": ("zfold", "inter")}
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -118,7 +123,8 @@ def main():
     for name, unbatched, port, var in cases(B):
         want = torch.stack(unbatched())
         calls = {"unbatched": unbatched, "port": port}
-        calls.update({v: (lambda i=i: var(i)) for i, v in enumerate(VARIANTS)})
+        calls.update({v: (lambda i=i: var(i))
+                      for i, v in enumerate(VARIANTS[name])})
         for label, fn in calls.items():
             got = fn()
             got = torch.stack(got) if isinstance(got, list) else got

@@ -8,9 +8,12 @@ binds that tree's ``unires_torch``, so that the kernels of two commits (for
 example an unpacked ``git archive`` of the parent) are timed in one call,
 each by its own cases (``kernel_cases``) and timing (``_time_ms``: CUDA
 events around each call, L2 flushed before it; ``_host_ms``: synchronised
-calls as a caller sees them). For each case it prints the max abs
-difference between kernel and plain version (must be 0), the kernel's
-device ms per call three times, and its host ms. A tree whose kernels read
+calls as a caller sees them). For each case of phase 3 (``kernel_cases``,
+then the FOV = true cases of ``fov_kernel_cases`` and each kernel's batched
+launch of ``KERNEL_BATCH`` volumes at the fit's shapes, as this tree's
+``chip_smoke.batch_case`` makes them, where the tree has them) it prints the max abs difference
+between kernel and plain version (must be 0), the kernel's device ms per
+call three times, and its host ms. A tree whose kernels read
 their maps from device memory (``ops.resample.push_plan`` exists) is given
 the maps as CUDA tensors and push its plan, as its fit chunk launches them;
 an older tree takes the host maps it was written for.
@@ -49,7 +52,10 @@ def main():
     funcs = {"pull": (tr.pull, tr.pull_plain), "push": (tr.push, tr.push_plain),
              "pull_grad": (tr.pull_grad, tr.pull_grad_plain)}
     device_maps = hasattr(tr, "push_plan")
-    for name, case, inp, Mc, out_dim, kw in cs.kernel_cases("cuda"):
+    cases = list(cs.kernel_cases("cuda"))
+    if hasattr(cs, "fov_kernel_cases"):
+        cases += cs.fov_kernel_cases("cuda")
+    for name, case, inp, Mc, out_dim, kw in cases:
         kern_fn, plain_fn = funcs[name]
         M, kwk = Mc, dict(kw)
         if device_maps:
@@ -62,13 +68,40 @@ def main():
                     kw.get("order", 1), tuple(inp.shape), out_dim)
         kern = lambda: kern_fn(inp, M, out_dim, **kwk)  # noqa: E731
         err = float((kern() - plain_fn(inp, Mc, out_dim, **kw)).abs().max())
-        ms = [cs._time_ms(kern, reps=21) for _ in range(3)]
-        host = cs._host_ms(kern, reps=21)
-        print(f"[times {args.label}] {name}/{case} "
-              f"({'device' if device_maps else 'host'} map): max_abs_err "
-              f"{err:.3e} | "
-              f"kernel ms " + " ".join(f"{t:.4f}" for t in ms)
-              + f" | host ms {host:.4f}")
+        report(cs, args.label, f"{name}/{case}", kern, err,
+               "device" if device_maps else "host")
+    if hasattr(cs, "KERNEL_BATCH") and device_maps:
+        for name in ("pull", "push", "pull_grad"):
+            kern, err = batch_case(funcs, name)
+            report(cs, args.label, f"{name}/batch{cs.KERNEL_BATCH}", kern,
+                   err, "device")
+
+
+def report(cs, label, case, kern, err, maps):
+    ms = [cs._time_ms(kern, reps=21) for _ in range(3)]
+    host = cs._host_ms(kern, reps=21)
+    print(f"[times {label}] {case} ({maps} map): max_abs_err {err:.3e} | "
+          f"kernel ms " + " ".join(f"{t:.4f}" for t in ms)
+          + f" | host ms {host:.4f}")
+
+
+def batch_case(funcs, name):
+    """The batched launch of phase 3, its inputs built by this tree's
+    ``chip_smoke.batch_case`` with the timed tree's ``unires_torch`` (the
+    one imported first): the launch, and its max abs difference from the
+    plain version."""
+    import numpy as np
+    import torch
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  HERE / "chip_smoke.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    inp, Ms, kw, out_dim, plain = here.batch_case(name)
+    Md = torch.from_numpy(np.ascontiguousarray(Ms)).cuda()
+    kern = lambda: funcs[name][0](inp, Md, out_dim, **kw)  # noqa: E731
+    want = torch.stack([plain(b) for b in range(len(Ms))])
+    return kern, float((kern() - want).abs().max())
 
 
 if __name__ == "__main__":

@@ -126,6 +126,65 @@ def test_pull_grad_kernel_ragged_tiles(cuda, out_dim):
     assert float((got - tr.pull_grad_plain(vol, M, out_dim)).abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("vol_dim", [(5, 9, 37), (4, 8, 16), (7, 3, 1),
+                                     (1, 17, 50), (3, 33, 9), (2, 64, 64)])
+def test_push_kernel_ragged_tiles(cuda, vol_dim, order):
+    """Target grids that are not multiples of the push kernel's tiles and
+    blocks, and ones that are: exact, the batched launch too."""
+    M = tr.affine_to_M(affine_matrix_classic(
+        [0.6, -0.4, 0.3, 0.05, -0.03, 0.04]))
+    vals = _vol((2, 6, 18, 40), 14, cuda)
+    got = tr.push(vals, np.stack([M, M]), vol_dim, order=order)
+    one = tr.push(vals[1], M, vol_dim, order=order)
+    torch.cuda.synchronize()
+    want = tr.push_plain(vals[1], M, vol_dim, order=order)
+    assert float(want.abs().max()) > 0
+    assert torch.equal(one, want) and torch.equal(got[1], want)
+    assert torch.equal(got[0], tr.push_plain(vals[0], M, vol_dim,
+                                             order=order))
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("vol_dim", [(13, 17, 19), (24, 24, 24), (7, 5, 9)])
+def test_push_kernel_sparse_sources(cuda, vol_dim, order):
+    """Sources three times the targets' spacing per axis (the 45 degree x 3
+    map of chip_smoke.py: most tiles' sources weigh on few of its targets),
+    on target grids that leave ragged tiles and one that does not: exact,
+    the batched launch too."""
+    src = tuple(-(-n // 3) for n in vol_dim)
+    M = tr.affine_to_M(centred_map(3.0 * affine_matrix_classic(
+        [0, 0, 0, 0.7, 0.5, 0.6])[:3, :3], vol_dim, src, offset=0.137))
+    vals = _vol((2,) + src, 16, cuda)
+    got = tr.push(vals, np.stack([M, M]), vol_dim, order=order)
+    torch.cuda.synchronize()
+    for b in (0, 1):
+        want = tr.push_plain(vals[b], M, vol_dim, order=order)
+        assert float(want.abs().max()) > 0
+        assert torch.equal(tr.push(vals[b], M, vol_dim, order=order), want)
+        assert torch.equal(got[b], want)
+
+
+@pytest.mark.parametrize("window", [None, (0, 0, 0), (2, 1, 3)], ids=str)
+@pytest.mark.parametrize("order", [0, 1])
+def test_push_kernel_wide_reach_and_cut_windows(cuda, order, window):
+    """The 45 degree x 1/4 map (a reach of ~7 voxels per axis, so a tile's
+    union of boxes spans ~15 x 16 x 19 sources), and windows narrower than
+    the reach (each of their tiles takes the path of one target at a
+    time): exact, and the batched launch equal to the unbatched ones."""
+    _, mat, out_dim = MAPS[-1]
+    M = tr.affine_to_M(mat)
+    vals = _vol((2,) + out_dim, 15, cuda)
+    got = tr.push(vals, np.stack([M, M]), IN_DIM, order=order, window=window)
+    one = [tr.push(vals[b], M, IN_DIM, order=order, window=window)
+           for b in (0, 1)]
+    torch.cuda.synchronize()
+    for b in (0, 1):
+        want = tr.push_plain(vals[b], M, IN_DIM, order=order, window=window)
+        assert float(want.abs().max()) > 0
+        assert torch.equal(one[b], want) and torch.equal(got[b], want)
+
+
 def test_wrappers_check_their_inputs(cuda):
     M = np.eye(4)[:3]
     with pytest.raises(TypeError):

@@ -300,11 +300,12 @@ def _reach_map(lin, in_dim):
             out_dim)
 
 
-def _candidate_box(M, Minv, order, src_dim, tgt_dim):
+def _candidate_box(M, Minv, order, src_dim, tgt_dim, window=None):
     """Per axis, the kernel's candidate range [lo, hi] of every target:
-    the reach around c = Minv . v, cut to the window and the source grid."""
+    the reach around c = Minv . v, cut to the window (push_window's unless
+    given) and the source grid."""
     reach = tr.push_reach(M, Minv, order, src_dim, tgt_dim)
-    window = tr.push_window(M)
+    window = tr.push_window(M) if window is None else window
     c = tr._sample_coords(Minv, tgt_dim, "cpu")
     lo, hi = [], []
     for d in range(3):
@@ -395,6 +396,218 @@ def test_push_narrowed_candidates_equal_plain_bitwise(name, mat, out_dim,
     vals = torch.from_numpy(_vol(out_dim, 21))
     want = tr.push_plain(vals, M, IN_DIM, order=order)
     got = _push_narrowed(vals, M, IN_DIM, order)
+    assert torch.equal(got, want)
+
+
+# --- the push kernel's tiles -------------------------------------------------
+# The push kernel gives a thread a tile of TX (x) x TY (y) x TZ (z) targets
+# and visits the union of their candidate boxes once, in (oa, ob, oc) order:
+# each source's sample point, FOV test (tiles with an edge target only),
+# floors, fractions and value once, then its weighted product added to each
+# target v of the tile with v_d in {floor(g_d), floor(g_d) + 1} (round(g) at
+# order 0). Where the reach lies inside the window by a margin, the union is
+# that of the corner targets' boxes; a tile where the window cuts a target's
+# box visits each target alone over its own box. These tests emulate that
+# visit order on the CPU against push_plain, bit for bit.
+
+# the kernel's two tiles (ragged on IN_DIM), and one that is not
+PUSH_TILES = [(1, 2, 4), (1, 3, 4), (1, 3, 1)]
+
+
+def _tiled_visit(vals, M, lo, hi, v0, edge, tile, order, vol_dim, fov):
+    """Sums of every group of targets (tiles, or single targets) over its
+    box [lo, hi], each a (3, ...) int64 tensor over the groups, sources in
+    (oa, ob, oc) order: (..., TX, TY, TZ) float32. ``v0``: the group's
+    first target (3 float32 tensors), ``edge``: groups whose sources are
+    tested against the FOV. A source adds + 0 to a target it does not weigh
+    on, as the kernel's registers do. Each (oa, ob) row's sources are
+    computed together, then added in oc order."""
+    TX, TY, TZ = tile
+    src_dim = tuple(vals.shape)
+    flat = vals.reshape(-1)
+    acc = torch.zeros(lo.shape[1:] + tile)
+    a = torch.arange(TX, dtype=torch.float32)[:, None, None]
+    b = torch.arange(TY, dtype=torch.float32)[:, None]
+    q = torch.arange(TZ, dtype=torch.float32)
+    count = [max(int((hi[d] - lo[d] + 1).max()), 0) for d in range(3)]
+    dc = torch.arange(count[2])[:, None, None, None]
+
+    def rows(t):  # (...) over the groups -> (..., oc, TX, TY, TZ)
+        return t[..., None, None, None, None]
+
+    for da, db in np.ndindex(*count[:2]):
+        o = [rows(lo[0] + da), rows(lo[1] + db), rows(lo[2]) + dc]
+        live = (o[0] <= rows(hi[0])) & (o[1] <= rows(hi[1])) & (
+            o[2] <= rows(hi[2]))
+        oc = [o[d].clamp(0, src_dim[d] - 1) for d in range(3)]
+        g = tr._map_points(M, [t.to(torch.float32) for t in oc])
+        live &= ~rows(edge) | tr._fov_mask(g, vol_dim, fov)
+        val = torch.take(flat, (oc[0] * src_dim[1] + oc[1]) * src_dim[2]
+                         + oc[2])
+        v = [rows(t) for t in v0]
+        if order == 0:
+            n = [torch.floor(g[d] + 0.5) for d in range(3)]
+            hit = ((n[0] == v[0] + a) & (n[1] == v[1] + b)
+                   & (n[2] == v[2] + q))
+            add = torch.where(live & hit, 1.0 * val, 0.0)
+        else:
+            fl = [torch.floor(g[d]) for d in range(3)]
+            f = [g[d] - fl[d] for d in range(3)]
+            ex, ey, ez = (v[d] - fl[d] for d in range(3))
+            wx = torch.where(ex == -a, 1.0 - f[0],
+                             torch.where(ex == 1 - a, f[0], 0.0))
+            wy = torch.where(ey == -b, 1.0 - f[1],
+                             torch.where(ey == 1 - b, f[1], 0.0))
+            wxy = wx * wy
+            m0, m1 = wxy * (1.0 - f[2]) * val, wxy * f[2] * val
+            add = torch.where(live, torch.where(
+                ez == -q, m0, torch.where(ez == 1 - q, m1, 0.0)), 0.0)
+        for k in range(count[2]):
+            acc = acc + add[..., k, :, :, :]
+    return acc
+
+
+def _push_tiled(vals, M, vol_dim, order, tile, window=None, fov=None):
+    """push as the tiled kernel computes it, on the CPU; also whether a
+    window cut a tile."""
+    M = tr._as_map(M)
+    Minv = tr.inverse_map(M)
+    window = tr.push_window(M) if window is None else window
+    fov = tr._as_fov(fov)
+    src_dim = tuple(vals.shape)
+    TX, TY, TZ = tile
+    X, Y, Z = vol_dim
+    Xt, Yt, Zt = -(-X // TX), -(-Y // TY), -(-Z // TZ)
+    reach = tr.push_reach(M, Minv, order, src_dim, vol_dim)
+    c = tr._sample_coords(Minv, vol_dim, "cpu")
+    # per target: its box (window included) and whether the window cuts
+    # it; padded to whole tiles with targets that widen nothing
+    pad = (0, Zt * TZ - Z, 0, Yt * TY - Y, 0, Xt * TX - X)
+    lo_t, hi_t, cut = [], [], torch.zeros(vol_dim, dtype=torch.bool)
+    for d in range(3):
+        anc = torch.floor(c[d] + 0.5)
+        lo0, hi0 = torch.ceil(c[d] - float(reach[d])), torch.floor(
+            c[d] + float(reach[d]))
+        wl, wh = anc - float(window[d]), anc + float(window[d])
+        cut |= (wl > lo0) | (wh < hi0)
+        lo_t.append(torch.nn.functional.pad(torch.maximum(lo0, wl), pad,
+                                            value=float("inf")))
+        hi_t.append(torch.nn.functional.pad(torch.minimum(hi0, wh), pad,
+                                            value=-float("inf")))
+
+    def per_tile(t, op):  # (Xt * TX, Yt * TY, Zt * TZ) -> (Xt, Yt, Zt)
+        t = t.reshape(Xt, TX, Yt, TY, Zt, TZ)
+        return op(op(op(t, dim=5).values, dim=3).values, dim=1).values
+
+    ulo = [per_tile(t, torch.min) for t in lo_t]
+    uhi = [per_tile(t, torch.max) for t in hi_t]
+    cut = per_tile(torch.nn.functional.pad(cut, pad), torch.max)
+    v0 = [(n * torch.arange(m, dtype=torch.float32))[s] for n, m, s in zip(
+        tile, (Xt, Yt, Zt), ((slice(None), None, None),
+                             (None, slice(None), None),
+                             (None, None, slice(None))))]
+    v0 = [t.expand(Xt, Yt, Zt) for t in v0]
+    # where the reach lies inside the window by a margin, a tile whose
+    # corner targets have |c| < 2^13 takes the union of its corners' boxes
+    # (reach only), and no window cuts it
+    r32 = [np.float32(reach[d]) for d in range(3)]
+    if all(r32[d] + np.float32(2.0 ** -8) < np.float32(window[d] + 0.5)
+           for d in range(3)):
+        corners = [tr._map_points(Minv, [v0[0] + i, v0[1] + j, v0[2] + k])
+                   for i in {0, TX - 1} for j in {0, TY - 1}
+                   for k in {0, TZ - 1}]
+        fast = torch.ones_like(cut)
+        for d in range(3):
+            for cc in corners:
+                fast &= cc[d].abs() < 8192.0
+            lo_f = torch.stack([torch.ceil(cc[d] - float(r32[d]))
+                                for cc in corners]).amin(0)
+            hi_f = torch.stack([torch.floor(cc[d] + float(r32[d]))
+                                for cc in corners]).amax(0)
+            ulo[d] = torch.where(fast, lo_f, ulo[d])
+            uhi[d] = torch.where(fast, hi_f, uhi[d])
+        cut &= ~fast
+    lo = torch.stack([t.clamp(0, 2.0 ** 20) for t in ulo]).to(torch.int64)
+    hi = torch.stack([torch.minimum(t, torch.tensor(src_dim[d] - 1.0))
+                      .clamp(min=-1.0) for d, t in enumerate(uhi)]
+                     ).to(torch.int64)
+    edge = ((fov is not None) | (v0[0] < 1) | (v0[0] + TX > X - 1)
+            | (v0[1] < 1) | (v0[1] + TY > Y - 1) | (v0[2] < 1)
+            | (v0[2] + TZ > Z - 1))
+    acc = _tiled_visit(vals, M, lo, hi, v0, edge, tile, order, vol_dim, fov)
+
+    def per_target(t):  # (Xt, Yt, Zt, TX, TY, TZ) -> (X, Y, Z)
+        t = t.permute(0, 3, 1, 4, 2, 5).reshape(Xt * TX, Yt * TY, Zt * TZ)
+        return t[:X, :Y, :Z]
+
+    out = per_target(acc)
+    if not cut.any():
+        return out, False
+    # the tiles that the window cuts: each target alone over its own box,
+    # the kernel's integer box, the tile's edge flag
+    lo1, hi1 = _candidate_box(M, Minv, order, src_dim, vol_dim, window)
+    v = [t.to(torch.float32) for t in torch.meshgrid(
+        *[torch.arange(n) for n in vol_dim], indexing="ij")]
+    every = torch.ones((1, 1, 1) + tuple(tile), dtype=torch.bool)
+    edge1 = per_target(edge[..., None, None, None] & every)
+    one = _tiled_visit(vals, M, torch.stack(lo1), torch.stack(hi1), v,
+                       edge1, (1, 1, 1), order, vol_dim, fov)[..., 0, 0, 0]
+    return torch.where(per_target(cut[..., None, None, None] & every), one,
+                       out), True
+
+
+def _tile_maps():
+    """The maps of MAPS and of REACH_MAPS, as (name, M, source grid)."""
+    for name, mat, out_dim in MAPS:
+        yield name, tr.affine_to_M(mat), out_dim
+    for name, lin in REACH_MAPS:
+        yield (name,) + _reach_map(lin, IN_DIM)
+
+
+@pytest.mark.parametrize("tile", PUSH_TILES, ids=str)
+@pytest.mark.parametrize("fov_name,fov", [("default", None)] + FOVS)
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("name,M,src_dim", list(_tile_maps()),
+                         ids=[m[0] for m in _tile_maps()])
+def test_push_tiled_visit_equals_plain_bitwise(name, M, src_dim, order,
+                                               fov_name, fov, tile):
+    """Each tile's union visited once, each source added to the tile's
+    targets it weighs on, gives push_plain's result to the bit."""
+    vals = torch.from_numpy(_vol(src_dim, 22))
+    want = tr.push_plain(vals, M, IN_DIM, order=order, fov=fov)
+    got, cut = _push_tiled(vals, M, IN_DIM, order, tile, fov=fov)
+    assert not cut  # the plan's window never cuts a box
+    assert want.abs().max() > 0
+    assert torch.equal(got, want)
+
+
+# (map, order, window) where the window cuts no target's box: a cut needs
+# reach >= window + 1/2 on some axis (not so for scale4, reach 1/8 or 1/4,
+# nor for rot45_scale3 at order 0, reach 1/4), and then a target whose c
+# lies far enough from its anchor on that axis for ceil(c - reach) or
+# floor(c + reach) to pass the window (no target of IN_DIM does for the
+# others, whose reach exceeds window + 1/2 by 0.014 or less)
+UNCUT = {("identity", 0, (0, 0, 0)), ("identity", 0, (1, 0, 1)),
+         ("sr", 0, (1, 0, 1)), ("near_identity", 0, (1, 0, 1)),
+         ("rot45_scale3", 0, (0, 0, 0)), ("rot45_scale3", 0, (1, 0, 1)),
+         ("rot45_scale3", 1, (1, 0, 1))} | {
+             ("scale4", o, w) for o in (0, 1) for w in ((0, 0, 0), (1, 0, 1))}
+
+
+@pytest.mark.parametrize("window", [(0, 0, 0), (1, 0, 1)], ids=str)
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("name,M,src_dim", list(_tile_maps()),
+                         ids=[m[0] for m in _tile_maps()])
+def test_push_tiled_cut_windows_equal_plain_bitwise(name, M, src_dim, order,
+                                                    window):
+    """A window narrower than the reach sends the tiles whose boxes it cuts
+    down the path of one target at a time (every case but those of UNCUT
+    has such a tile): bitwise push_plain with that window."""
+    vals = torch.from_numpy(_vol(src_dim, 23))
+    want = tr.push_plain(vals, M, IN_DIM, order=order, window=window)
+    got, cut = _push_tiled(vals, M, IN_DIM, order, PUSH_TILES[0],
+                           window=window)
+    assert cut == ((name, order, window) not in UNCUT)
     assert torch.equal(got, want)
 
 

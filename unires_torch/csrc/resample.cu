@@ -31,10 +31,19 @@
 
 namespace {
 
-// pull and push: a block is kLanesZ lanes along z times kRowsY rows along
-// y, so a warp covers 8 (z) x 4 (y) outputs; see push_kernel for why
+// pull: a block is kLanesZ lanes along z times kRowsY rows along y, so a
+// warp covers 8 (z) x 4 (y) outputs
 constexpr int kLanesZ = 8;
 constexpr int kRowsY = 16;
+// push: a thread owns a tile of kPushTX (x) x kPushTY (y) x kPushTZ (z)
+// targets, a block is kPushLanesZ (z) x kPushLanesY (y) x kPushLanesX (x)
+// threads, so a warp covers 2 (z) x 4 (y) x 4 (x) tiles; see push_tile
+constexpr int kPushTX = 1;
+constexpr int kPushTY = 2;
+constexpr int kPushTZ = 4;
+constexpr int kPushLanesZ = 2;
+constexpr int kPushLanesY = 4;
+constexpr int kPushLanesX = 16;
 // pull and pull_grad: output rows along x a thread computes (i and i + 1)
 constexpr int kRowsX = 2;
 // pull_grad: a warp covers 16 (z) x 2 (y) outputs; see pull_grad_kernel
@@ -64,11 +73,11 @@ __device__ __forceinline__ Map34 load_map_dev(const float* __restrict__ p) {
 }
 
 // One launch more in the kernel's device counter (and in its FOV = true
-// count): thread 0 of block 0 only.
-template <bool FOV>
+// count): thread 0 of block 0 only (Z3: blocks with a third dimension).
+template <bool FOV, bool Z3 = false>
 __device__ __forceinline__ void count_launch(unsigned long long* cnt) {
   if (cnt != nullptr && (blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x |
-                         threadIdx.y) == 0) {
+                         threadIdx.y | (Z3 ? threadIdx.z : 0u)) == 0) {
     atomicAdd(cnt, 1ULL);
     if (FOV) atomicAdd(cnt + 1, 1ULL);
   }
@@ -327,136 +336,367 @@ __global__ void __launch_bounds__(kLanesZ * kRowsY)
 // and bitwise equal to push_plain.
 //
 // Bound: device memory in principle (the source and target volumes once
-// each: 17 us at the fit's shapes on an H100), in practice the issue rate:
-// every (source, target) pair with a weight costs the map, three floors and
-// the weight products, and a near-identity map has ~8 such pairs per target.
+// each: 17 us at the fit's shapes on an H100), in practice the issue rate.
+// A source weighs on the 8 targets around its sample point g(o), so the
+// port's first gather, one target per thread (scripts/push_variants.cu:
+// "target"), computed every source's g, floors, fractions and load once per
+// target it weighs on: 10.1 loop turns per target for a warp's slowest
+// lane at the fit's map, 56 instructions each, 8.2 % of the bound on an
+// H100 (0.209 ms).
 //
-// Design: only sources that can weigh on v are visited. A weight needs
-// |M o + m - v|_inf < 1 (1/2 at order 0), so |o - Minv v|_d <= reach_d, the
-// L1 norm of Minv's row d plus rounding margins (ops/resample.py:
-// push_reach). Per axis the candidates are [ceil(c - reach), floor(c +
-// reach)] cut to the window and the grid: 2 values, rarely 3, at the fit's
-// maps (8.6 candidates per target where the window has 27). They are
-// visited in the window's (da, db, dc) order, and a skipped candidate weighs
-// 0, so the sum is bitwise push_plain's. The partial sums M[d,0] oa and
-// M[d,0] oa + M[d,1] ob are computed once per candidate x and (x, y) row
-// (the plain version rounds left to right, so the bits are the same). The
-// candidate count of a target depends on where Minv v falls between the
-// integers; a warp runs as many iterations as its most demanding lane, so
-// a warp covers 8 (z) x 4 (y) targets, whose Minv v drift less than along 32
-// z (9.8 instead of 12.5 iterations for 8.6 candidates on average at the
-// fit's map). Interior targets skip the FOV test (their weighted sources lie
-// inside it), and every candidate adds w * vals[o], 0 where it weighs
-// nothing. Staging a source box per target tile in shared memory, each
-// source's floors and fractions computed once, measured slower at every
-// tile size tried (scripts/cuda_staged_variants.py). With the fov override
-// (FOV = true) the bounds need not enclose the target grid, so every
-// candidate of every target is tested against them; the default
-// instantiation is the kernel without it, instruction for instruction.
+// Design: a thread owns a tile of TX (x) x TY (y) x TZ (z) targets and
+// visits the union of their candidate boxes once, in (oa, ob, oc) order. A
+// weight needs |M o + m - v|_inf < 1 (1/2 at order 0), so |o - Minv v|_d <=
+// reach_d, the L1 norm of Minv's row d plus rounding margins (ops/
+// resample.py: push_reach); a target's box is [ceil(c - reach), floor(c +
+// reach)] per axis, c = Minv . v, cut to the window and the grid. Per source
+// the sample point (partial sums M[d,0] oa and + M[d,1] ob hoisted, in the
+// plain version's left-to-right order), the FOV test, the floors, the
+// fractions and the load are computed once; the source then adds
+// ((w_x w_y) w_z) vals[o] to the targets v with v_d in {fl_d, fl_d + 1}
+// (round(g) at order 0), with the plain version's roundings, each target's
+// sum in its own register (unrolled, predicated adds: no dynamic index).
+// Each target still receives its weighted sources in (oa, ob, oc) order,
+// which the union's order keeps, so its sum is bitwise push_plain's: a
+// source of the union outside a target's reach weighs 0 on it and is not
+// added. Where the window is narrower than the reach for some target of the
+// tile (a caller's window), the union would add sources the window drops:
+// that tile takes the path of one target at a time, each over its own box,
+// with the same visit code (a tile of 1). Tiles whose targets are all
+// interior skip the FOV test (a weighted source of an interior target lies
+// inside the default FOV); with the fov override (FOV = true) every source
+// of every tile is tested against the bounds.
 //
-// The batched launch (push_batch_kernel) covers B volumes with one volume's
-// launch grid as pull's: the sources of volume b at vals + b * vstride, its
-// plan at plan + 32 b, its output at out + b * tx * ty * tz, each target
-// computed by the same code (push_target) as unbatched.
+// The tile is 1 x 2 x 4 targets and a warp's 32 lanes are 2 (z) x 4 (y) x
+// 4 (x) tiles: at the fit's map the slowest lane of a warp visits 4.7
+// sources per target (10.1 turns before), 71 instructions each, 20 of them
+// the routing into the 8 registers. The lanes span x as well because the
+// union's extent varies with the fraction of c, and the shear moves that
+// fraction least across a warp whose footprint is compact in all three
+// axes (5.4 visits per target with 8 (z) x 4 (y) lanes; the counts:
+// scripts/push_tile_counts.py). Measured on an H100 at 700 W: 0.123 ms at
+// the fit's map, 14 % of the bound, 0.57 of grid_sampler_3d_backward;
+// still bound by the issue rate. One tile serves every map: at the 45
+// degree x 3 map of chip_smoke.py (an eighth as many sources as targets, a
+// map no caller of the port makes) push is 1.02-1.06x the library call.
+//
+// Tried and lost (scripts/cuda_push_variants.py reruns them): one target
+// per thread ("target"); other tiles (1 x 1 x 4 to 2 x 2 x 4) and block
+// shapes; selects in place of predicated adds, the oc loop unrolled by 2, a
+// floor by a rounding-down add, the union from every target's box, stores
+// through shared memory (opt_tile's options there; the stores through
+// shared memory won at the 45 degree x 3 map, 0.055 -> 0.046 ms, and cost
+// 9 % at the fit's map); each tile's sums in shared memory, a source
+// reaching its targets by address ("smem"); staging a source box per
+// target tile in shared memory (scripts/cuda_staged_variants.py).
+//
+// The batched launch (push_batch_kernel) folds the B volumes into the
+// grid's z, the volumes fastest: block z = (x block) * B + b; volume b's
+// sources at vals + b * vstride, its plan at plan + 32 b, its output at
+// out + b * tx * ty * tz, each tile computed by the same code (push_tile)
+// as unbatched. One volume's launch grid with each thread over the volumes
+// (pull's mapping) measured 1.18x three unbatched launches
+// (scripts/cuda_batch_variants.py: "loop").
 // ---------------------------------------------------------------------------
-template <int ORDER, bool FOV>
-__device__ __forceinline__ void push_target(const float* __restrict__ vals,
-                                            float* __restrict__ out,
-                                            const float* __restrict__ plan,
-                                            int sx, int sy, int sz, int tx,
-                                            int ty, int tz, int wx, int wy,
-                                            int wz, const Box& fov, int vi) {
-  const int vk = blockIdx.x * kLanesZ + threadIdx.x;
-  const int vj = blockIdx.y * kRowsY + threadIdx.y;
-  if (vk >= tz || vj >= ty) return;
-  // the plan (ops/resample.py: push_plan): M, Minv, reach (3), window (3)
-  const Map34 M = load_map_dev(plan);
-  const Map34 Minv = load_map_dev(plan + 12);
-  const float4 p0 = __ldg(reinterpret_cast<const float4*>(plan + 24));
-  const float4 p1 = __ldg(reinterpret_cast<const float4*>(plan + 28));
-  float c[3];
-  map_point(Minv, (float)vi, (float)vj, (float)vk, c);
-  const float r[3] = {p0.x, p0.y, p0.z};
-  // a window given by the caller (>= 0) or the plan's
-  const int w[3] = {wx >= 0 ? wx : (int)p0.w, wy >= 0 ? wy : (int)p1.x,
-                    wz >= 0 ? wz : (int)p1.y};
-  const int s[3] = {sx, sy, sz};
-  int lo[3], hi[3];
+
+// Source o of sample point g(o) = (s01 + M[:,2] oc) + M[:,3] (fc = oc)
+// added to the targets (vi + a, vj + b, vk + q) of the tile (a < TX,
+// b < TY, q < TZ) that it weighs on. EDGE: the source is tested against the
+// FOV (tx, ty, tz: the target grid).
+template <int ORDER, bool FOV, bool EDGE, int TX, int TY, int TZ>
+__device__ __forceinline__ void push_source(
+    const Map34& M, const float s01[3], float fc, const float* __restrict__ src,
+    float vi, float vj, float vk, int tx, int ty, int tz, const Box& fov,
+    float acc[TX][TY][TZ]) {
+  float g[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+    g[d] = __fadd_rn(__fadd_rn(s01[d], __fmul_rn(M.m[4 * d + 2], fc)),
+                     M.m[4 * d + 3]);
+  if (EDGE && !inside<FOV>(g, tx, ty, tz, fov)) return;
+  const float val = __ldg(src);
+  if (ORDER == 0) {
+    // weight 1 on the target at round(g): + 1 * vals[o] as the plain
+    // version adds it, + 0 on the others
+    const float n0 = floorf(g[0] + 0.5f);
+    const float n1 = floorf(g[1] + 0.5f);
+    const float n2 = floorf(g[2] + 0.5f);
+#pragma unroll
+    for (int a = 0; a < TX; ++a)
+#pragma unroll
+      for (int b = 0; b < TY; ++b)
+#pragma unroll
+        for (int q = 0; q < TZ; ++q)
+          acc[a][b][q] = madd(acc[a][b][q],
+                              (n0 == vi + (float)a) & (n1 == vj + (float)b) &
+                                      (n2 == vk + (float)q)
+                                  ? 1.0f
+                                  : 0.0f,
+                              val);
+    return;
+  }
+  // per axis, target v_d - floor(g_d) (a whole number): 0 weighs 1 - f,
+  // 1 weighs f, any other 0
+  float fl[3], f[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    fl[d] = floorf(g[d]);
+    f[d] = __fsub_rn(g[d], fl[d]);
+  }
+  const float ex = __fsub_rn(vi, fl[0]);
+  const float ey = __fsub_rn(vj, fl[1]);
+  const float ez = __fsub_rn(vk, fl[2]);
+  const float wx0 = __fsub_rn(1.0f, f[0]);
+  const float wy0 = __fsub_rn(1.0f, f[1]);
+  const float wz0 = __fsub_rn(1.0f, f[2]);
+#pragma unroll
+  for (int a = 0; a < TX; ++a) {
+    const float wx = ex == -(float)a          ? wx0
+                     : ex == 1.0f - (float)a ? f[0]
+                                              : 0.0f;
+#pragma unroll
+    for (int b = 0; b < TY; ++b) {
+      const float wy = ey == -(float)b          ? wy0
+                       : ey == 1.0f - (float)b ? f[1]
+                                                : 0.0f;
+      // ((1 w_x) w_y) w_z, then times vals[o]: the plain version's
+      // roundings
+      const float wxy = __fmul_rn(wx, wy);
+      const float m0 = __fmul_rn(__fmul_rn(wxy, wz0), val);
+      const float m1 = __fmul_rn(__fmul_rn(wxy, f[2]), val);
+#pragma unroll
+      for (int q = 0; q < TZ; ++q) {
+        const bool p0 = ez == -(float)q, p1 = ez == 1.0f - (float)q;
+        if (p0 | p1) acc[a][b][q] = __fadd_rn(acc[a][b][q], p0 ? m0 : m1);
+      }
+    }
+  }
+}
+
+// The sources of the box [lo, hi] in (oa, ob, oc) order, each added to the
+// tile's targets that it weighs on (push_source).
+template <int ORDER, bool FOV, bool EDGE, int TX, int TY, int TZ>
+__device__ __forceinline__ void push_visit(
+    const float* __restrict__ vals, const Map34& M, int sy, int sz,
+    const int lo[3], const int hi[3], float vi, float vj, float vk, int tx,
+    int ty, int tz, const Box& fov, float acc[TX][TY][TZ]) {
+  float fa = (float)lo[0];
+  for (int oa = lo[0]; oa <= hi[0]; ++oa, fa += 1.0f) {
+    float pa[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) pa[d] = __fmul_rn(M.m[4 * d], fa);
+    float fb = (float)lo[1];
+    for (int ob = lo[1]; ob <= hi[1]; ++ob, fb += 1.0f) {
+      float s01[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        s01[d] = __fadd_rn(pa[d], __fmul_rn(M.m[4 * d + 1], fb));
+      const float* src = vals + ((oa * sy + ob) * sz + lo[2]);
+      float fc = (float)lo[2];
+      // one turn at a time: unrolled by 2, or as the compiler chooses, it
+      // measured 13 % and 4 % slower on an H100
+#pragma unroll 1
+      for (int oc = lo[2]; oc <= hi[2]; ++oc, fc += 1.0f, ++src)
+        push_source<ORDER, FOV, EDGE, TX, TY, TZ>(
+            M, s01, fc, src, vi, vj, vk, tx, ty, tz, fov, acc);
+    }
+  }
+}
+
+// One target's candidate box as a tile of one computes it (the path of a
+// tile whose window cuts a box).
+__device__ __forceinline__ void push_box(const float c[3], const float r[3],
+                                         const int w[3], const int s[3],
+                                         int lo[3], int hi[3]) {
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     const int anc = clamp_far(floorf(c[d] + 0.5f));
     lo[d] = max(max(clamp_far(ceilf(c[d] - r[d])), anc - w[d]), 0);
     hi[d] = min(min(clamp_far(floorf(c[d] + r[d])), anc + w[d]), s[d] - 1);
   }
-  const int v[3] = {vi, vj, vk};
-  // a weighted source of an interior target lies inside the default FOV
-  const bool edge = FOV | (vi < 1) | (vi > tx - 2) | (vj < 1) |
-                    (vj > ty - 2) | (vk < 1) | (vk > tz - 2);
-  float acc = 0.0f;
-  for (int oa = lo[0]; oa <= hi[0]; ++oa) {
-    float pa[3];
-#pragma unroll
-    for (int d = 0; d < 3; ++d) pa[d] = __fmul_rn(M.m[4 * d], (float)oa);
-    for (int ob = lo[1]; ob <= hi[1]; ++ob) {
-      float s01[3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d)
-        s01[d] = __fadd_rn(pa[d], __fmul_rn(M.m[4 * d + 1], (float)ob));
-      const float* row = vals + (oa * sy + ob) * sz;
-      for (int oc = lo[2]; oc <= hi[2]; ++oc) {
-        float g[3];
-#pragma unroll
-        for (int d = 0; d < 3; ++d)
-          g[d] = __fadd_rn(__fadd_rn(s01[d], __fmul_rn(M.m[4 * d + 2],
-                                                       (float)oc)),
-                           M.m[4 * d + 3]);
-        if (edge && !inside<FOV>(g, tx, ty, tz, fov)) continue;
-        float wt = 1.0f;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          if (ORDER == 0) {
-            if ((int)floorf(g[d] + 0.5f) != v[d]) wt = 0.0f;
-          } else {
-            const float fl = floorf(g[d]);
-            const float f = __fsub_rn(g[d], fl);
-            const int ai = (int)fl;
-            const float wd = (v[d] == ai)       ? __fsub_rn(1.0f, f)
-                             : (v[d] == ai + 1) ? f
-                                                : 0.0f;
-            wt = __fmul_rn(wt, wd);
-          }
-        }
-        // w * vals[o] with w = 0 adds nothing, as in the plain version
-        acc = madd(acc, wt, __ldg(row + oc));
-      }
-    }
-  }
-  out[((long long)vi * ty + vj) * tz + vk] = acc;
 }
 
-template <int ORDER, bool FOV>
-__global__ void __launch_bounds__(kLanesZ * kRowsY)
+// The sums of the tile whose first target (vi, vj, vk) lies inside the
+// target grid: put(a, b, q, sum) for every target (vi + a, vj + b, vk + q),
+// a < TX, b < TY, q < TZ (those outside the grid included).
+template <int ORDER, bool FOV, int TX, int TY, int TZ, class Put>
+__device__ __forceinline__ void push_sums(const float* __restrict__ vals,
+                                          const float* __restrict__ plan,
+                                          int sx, int sy, int sz, int tx,
+                                          int ty, int tz, int wx, int wy,
+                                          int wz, const Box& fov, int vi,
+                                          int vj, int vk, Put put) {
+  // the plan (ops/resample.py: push_plan): M, Minv, reach (3), window (3)
+  const Map34 M = load_map_dev(plan);
+  const Map34 Minv = load_map_dev(plan + 12);
+  const float4 p0 = __ldg(reinterpret_cast<const float4*>(plan + 24));
+  const float4 p1 = __ldg(reinterpret_cast<const float4*>(plan + 28));
+  const float r[3] = {p0.x, p0.y, p0.z};
+  // a window given by the caller (>= 0) or the plan's
+  const int w[3] = {wx >= 0 ? wx : (int)p0.w, wy >= 0 ? wy : (int)p1.x,
+                    wz >= 0 ? wz : (int)p1.y};
+  const int s[3] = {sx, sy, sz};
+  const float fi = (float)vi, fj = (float)vj, fk = (float)vk;
+  // The union of the tile's boxes, and whether the window cuts one. Where
+  // the reach lies inside the window by a margin (r + 2^-8 < w + 1/2 on
+  // every axis) and |c| < 2^13 at the tile's corners, no window can cut a
+  // box (a cut needs r >= w + 1/2 - 2 ulp(c)), and, c being affine in the
+  // target, the union is that of the corners' boxes (push_reach's margins
+  // cover the rounding of c). Else every target's box is computed.
+  float ulo[3] = {kFar, kFar, kFar}, uhi[3] = {-kFar, -kFar, -kFar};
+  bool exact = false;
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+    exact |= !(r[d] + 0.00390625f < (float)w[d] + 0.5f);
+  if (!exact) {
+#pragma unroll
+    for (int a = 0; a < (TX > 1 ? 2 : 1); ++a)
+#pragma unroll
+      for (int b = 0; b < (TY > 1 ? 2 : 1); ++b)
+#pragma unroll
+        for (int q = 0; q < (TZ > 1 ? 2 : 1); ++q) {
+          float c[3];
+          map_point(Minv, fi + (float)(a * (TX - 1)),
+                    fj + (float)(b * (TY - 1)), fk + (float)(q * (TZ - 1)),
+                    c);
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            exact |= !(fabsf(c[d]) < 8192.0f);
+            ulo[d] = fminf(ulo[d], ceilf(c[d] - r[d]));
+            uhi[d] = fmaxf(uhi[d], floorf(c[d] + r[d]));
+          }
+        }
+  }
+  bool cut = false;
+  if (exact) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) ulo[d] = kFar, uhi[d] = -kFar;
+#pragma unroll
+    for (int a = 0; a < TX; ++a)
+#pragma unroll
+      for (int b = 0; b < TY; ++b)
+#pragma unroll
+        for (int q = 0; q < TZ; ++q) {
+          if ((vi + a >= tx) | (vj + b >= ty) | (vk + q >= tz)) continue;
+          float c[3];
+          map_point(Minv, fi + (float)a, fj + (float)b, fk + (float)q, c);
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const float anc = floorf(c[d] + 0.5f);
+            const float lo0 = ceilf(c[d] - r[d]), hi0 = floorf(c[d] + r[d]);
+            const float wl = anc - (float)w[d], wh = anc + (float)w[d];
+            cut = cut | (wl > lo0) | (wh < hi0);
+            ulo[d] = fminf(ulo[d], fmaxf(lo0, wl));
+            uhi[d] = fmaxf(uhi[d], fminf(hi0, wh));
+          }
+        }
+  }
+  // a weighted source of an interior target lies inside the default FOV
+  const bool edge = FOV | (vi < 1) | (vi + TX > tx - 1) | (vj < 1) |
+                    (vj + TY > ty - 1) | (vk < 1) | (vk + TZ > tz - 1);
+  if (!cut) {
+    int lo[3], hi[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      lo[d] = (int)fminf(fmaxf(ulo[d], 0.0f), kFar);
+      hi[d] = (int)fmaxf(fminf(uhi[d], (float)(s[d] - 1)), -1.0f);
+    }
+    float acc[TX][TY][TZ];
+#pragma unroll
+    for (int a = 0; a < TX; ++a)
+#pragma unroll
+      for (int b = 0; b < TY; ++b)
+#pragma unroll
+        for (int q = 0; q < TZ; ++q) acc[a][b][q] = 0.0f;
+    if (edge)
+      push_visit<ORDER, FOV, true, TX, TY, TZ>(
+          vals, M, sy, sz, lo, hi, fi, fj, fk, tx, ty, tz, fov, acc);
+    else
+      push_visit<ORDER, FOV, false, TX, TY, TZ>(
+          vals, M, sy, sz, lo, hi, fi, fj, fk, tx, ty, tz, fov, acc);
+#pragma unroll
+    for (int a = 0; a < TX; ++a)
+#pragma unroll
+      for (int b = 0; b < TY; ++b)
+#pragma unroll
+        for (int q = 0; q < TZ; ++q) put(a, b, q, acc[a][b][q]);
+    return;
+  }
+  // the window cuts a box: each target alone over its own box
+#pragma unroll 1
+  for (int t = 0; t < TX * TY * TZ; ++t) {
+    const int a = t / (TY * TZ), b = (t / TZ) % TY, q = t % TZ;
+    const float i = fi + (float)a, j = fj + (float)b, k = fk + (float)q;
+    float c[3];
+    map_point(Minv, i, j, k, c);
+    int lo[3], hi[3];
+    push_box(c, r, w, s, lo, hi);
+    float acc[1][1][1] = {{{0.0f}}};
+    push_visit<ORDER, FOV, true, 1, 1, 1>(vals, M, sy, sz, lo, hi, i, j, k,
+                                          tx, ty, tz, fov, acc);
+    put(a, b, q, acc[0][0][0]);
+  }
+}
+
+// The tiles of a block (blockIdx.x, .y, xb) of LZ (z) x LY (y) x LX (x)
+// threads, thread (threadIdx.x, .y, .z) the tile of targets (vi + a, vj +
+// b, vk + q), a < TX, b < TY, q < TZ, written to out (the target grid)
+// where they lie inside it.
+template <int ORDER, bool FOV, int TX, int TY, int TZ, int LZ, int LY,
+          int LX>
+__device__ __forceinline__ void push_tile(const float* __restrict__ vals,
+                                          float* __restrict__ out,
+                                          const float* __restrict__ plan,
+                                          int sx, int sy, int sz, int tx,
+                                          int ty, int tz, int wx, int wy,
+                                          int wz, const Box& fov, int xb) {
+  const int vi = (xb * LX + threadIdx.z) * TX;
+  const int vj = (blockIdx.y * LY + threadIdx.y) * TY;
+  const int vk = (blockIdx.x * LZ + threadIdx.x) * TZ;
+  if ((vi < tx) & (vj < ty) & (vk < tz))
+    push_sums<ORDER, FOV, TX, TY, TZ>(
+        vals, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, fov, vi, vj, vk,
+        [&](int a, int b, int q, float v) {
+          if ((vi + a < tx) & (vj + b < ty) & (vk + q < tz))
+            out[((long long)(vi + a) * ty + vj + b) * tz + vk + q] = v;
+        });
+}
+
+template <int ORDER, bool FOV, int TX, int TY, int TZ, int LZ, int LY,
+          int LX>
+__global__ void __launch_bounds__(LZ * LY * LX)
     push_kernel(const float* __restrict__ vals, float* __restrict__ out,
                 const float* __restrict__ plan, int sx, int sy, int sz,
                 int tx, int ty, int tz, int wx, int wy, int wz, Box fov,
                 unsigned long long* cnt) {
-  count_launch<FOV>(cnt);
-  push_target<ORDER, FOV>(vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy,
-                          wz, fov, blockIdx.z);
+  count_launch<FOV, true>(cnt);
+  push_tile<ORDER, FOV, TX, TY, TZ, LZ, LY, LX>(
+      vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, fov, blockIdx.z);
 }
 
-template <int ORDER, bool FOV>
-__global__ void __launch_bounds__(kLanesZ * kRowsY)
+// The batched launch: block z = (x block) * batch + b, so the blocks of
+// one place in the B volumes run side by side.
+template <int ORDER, bool FOV, int TX, int TY, int TZ, int LZ, int LY,
+          int LX>
+__global__ void __launch_bounds__(LZ * LY * LX)
     push_batch_kernel(const float* __restrict__ vals, float* __restrict__ out,
                       const float* __restrict__ plan, int sx, int sy, int sz,
                       int tx, int ty, int tz, int wx, int wy, int wz, Box fov,
                       unsigned long long* cnt, int batch, long long vstride) {
-  count_launch<FOV>(cnt);
-  for (int b = 0; b < batch; ++b)
-    push_target<ORDER, FOV>(vals + b * vstride,
-                            out + b * ((long long)tx * ty * tz),
-                            plan + 32 * b, sx, sy, sz, tx, ty, tz, wx, wy, wz,
-                            fov, blockIdx.z);
+  count_launch<FOV, true>(cnt);
+  const int xb = blockIdx.z / batch, b = blockIdx.z - xb * batch;
+  push_tile<ORDER, FOV, TX, TY, TZ, LZ, LY, LX>(
+      vals + b * vstride, out + b * ((long long)tx * ty * tz), plan + 32 * b,
+      sx, sy, sz, tx, ty, tz, wx, wy, wz, fov, xb);
+}
+
+// push's launch: grid (z tiles / LZ, y tiles / LY, x tiles / LX), block
+// (LZ, LY, LX)
+template <int TX, int TY, int TZ, int LZ, int LY, int LX>
+dim3 push_grid(int tx, int ty, int tz) {
+  return dim3((unsigned)((tz + LZ * TZ - 1) / (LZ * TZ)),
+              (unsigned)((ty + LY * TY - 1) / (LY * TY)),
+              (unsigned)((tx + LX * TX - 1) / (LX * TX)));
 }
 
 // ---------------------------------------------------------------------------
@@ -636,18 +876,54 @@ void launch_pull(dim3 grid, dim3 block, cudaStream_t s, const float* vol,
         vol, out, m, nx, ny, nz, ox, oy, oz, Box(), cnt);
 }
 
-template <int ORDER>
-void launch_push(dim3 grid, dim3 block, cudaStream_t s, const float* vals,
-                 float* out, const float* plan, int sx, int sy, int sz,
-                 int tx, int ty, int tz, int wx, int wy, int wz,
-                 const float* fov, unsigned long long* cnt) {
-  if (fov)
-    push_kernel<ORDER, true><<<grid, block, 0, s>>>(
-        vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, load_box(fov),
-        cnt);
+// One launch of push at tile TX x TY x TZ and block LZ x LY x LX: the batched
+// kernel when batch > 0, else the unbatched one.
+template <int ORDER, bool FOV, int TX, int TY, int TZ, int LZ, int LY,
+          int LX>
+void launch_push_kernel(cudaStream_t s, const float* vals, float* out,
+                        const float* plan, int sx, int sy, int sz, int tx,
+                        int ty, int tz, int wx, int wy, int wz, Box box,
+                        unsigned long long* cnt, int batch,
+                        long long vstride) {
+  dim3 grid = push_grid<TX, TY, TZ, LZ, LY, LX>(tx, ty, tz);
+  const dim3 block(LZ, LY, LX);
+  if (batch > 0) {
+    grid.z *= (unsigned)batch;
+    push_batch_kernel<ORDER, FOV, TX, TY, TZ, LZ, LY, LX>
+        <<<grid, block, 0, s>>>(vals, out, plan, sx, sy, sz, tx, ty, tz, wx,
+                                wy, wz, box, cnt, batch, vstride);
+  } else {
+    push_kernel<ORDER, FOV, TX, TY, TZ, LZ, LY, LX>
+        <<<grid, block, 0, s>>>(vals, out, plan, sx, sy, sz, tx, ty, tz, wx,
+                                wy, wz, box, cnt);
+  }
+}
+
+// push's instantiation for the order and the fov (null: the default bounds)
+int launch_push(cudaStream_t s, const float* vals, float* out,
+                const float* plan, const float* fov, int sx, int sy, int sz,
+                int tx, int ty, int tz, int wx, int wy, int wz, int order,
+                unsigned long long* cnt, int batch, long long vstride) {
+  constexpr int TX = kPushTX, TY = kPushTY, TZ = kPushTZ;
+  constexpr int LZ = kPushLanesZ, LY = kPushLanesY, LX = kPushLanesX;
+  const Box box = load_box(fov);
+  if (order == 0 && fov)
+    launch_push_kernel<0, true, TX, TY, TZ, LZ, LY, LX>(
+        s, vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, box, cnt,
+        batch, vstride);
+  else if (order == 0)
+    launch_push_kernel<0, false, TX, TY, TZ, LZ, LY, LX>(
+        s, vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, box, cnt,
+        batch, vstride);
+  else if (fov)
+    launch_push_kernel<1, true, TX, TY, TZ, LZ, LY, LX>(
+        s, vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, box, cnt,
+        batch, vstride);
   else
-    push_kernel<ORDER, false><<<grid, block, 0, s>>>(
-        vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, Box(), cnt);
+    launch_push_kernel<1, false, TX, TY, TZ, LZ, LY, LX>(
+        s, vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, box, cnt,
+        batch, vstride);
+  return (int)cudaGetLastError();
 }
 
 template <int ORDER>
@@ -663,22 +939,6 @@ void launch_pull_batch(dim3 grid, dim3 block, cudaStream_t s,
   else
     pull_batch_kernel<ORDER, false><<<grid, block, 0, s>>>(
         vol, out, m, nx, ny, nz, ox, oy, oz, Box(), cnt, batch, vstride);
-}
-
-template <int ORDER>
-void launch_push_batch(dim3 grid, dim3 block, cudaStream_t s,
-                       const float* vals, float* out, const float* plan,
-                       int sx, int sy, int sz, int tx, int ty, int tz, int wx,
-                       int wy, int wz, const float* fov,
-                       unsigned long long* cnt, int batch, long long vstride) {
-  if (fov)
-    push_batch_kernel<ORDER, true><<<grid, block, 0, s>>>(
-        vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, load_box(fov),
-        cnt, batch, vstride);
-  else
-    push_batch_kernel<ORDER, false><<<grid, block, 0, s>>>(
-        vals, out, plan, sx, sy, sz, tx, ty, tz, wx, wy, wz, Box(), cnt,
-        batch, vstride);
 }
 
 }  // namespace
@@ -717,17 +977,8 @@ int unires_push(const float* vals, float* out, const float* plan,
                 int tz, int wx, int wy, int wz, int order,
                 unsigned long long* cnt, void* stream) {
   if ((long long)tx * ty * tz == 0) return (int)cudaGetLastError();
-  const dim3 block(kLanesZ, kRowsY);
-  const dim3 grid((unsigned)((tz + kLanesZ - 1) / kLanesZ),
-                  (unsigned)((ty + kRowsY - 1) / kRowsY), (unsigned)tx);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (order == 0)
-    launch_push<0>(grid, block, s, vals, out, plan, sx, sy, sz, tx, ty, tz,
-                   wx, wy, wz, fov, cnt);
-  else
-    launch_push<1>(grid, block, s, vals, out, plan, sx, sy, sz, tx, ty, tz,
-                   wx, wy, wz, fov, cnt);
-  return (int)cudaGetLastError();
+  return launch_push((cudaStream_t)stream, vals, out, plan, fov, sx, sy, sz,
+                     tx, ty, tz, wx, wy, wz, order, cnt, 0, 0);
 }
 
 // vol (nx, ny, nz) -> out (ox, oy, oz, 3); m: device pointer to 12 floats;
@@ -776,17 +1027,8 @@ int unires_push_batch(const float* vals, float* out, const float* plan,
                       int batch, long long vstride, unsigned long long* cnt,
                       void* stream) {
   if ((long long)tx * ty * tz * batch == 0) return (int)cudaGetLastError();
-  const dim3 block(kLanesZ, kRowsY);
-  const dim3 grid((unsigned)((tz + kLanesZ - 1) / kLanesZ),
-                  (unsigned)((ty + kRowsY - 1) / kRowsY), (unsigned)tx);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (order == 0)
-    launch_push_batch<0>(grid, block, s, vals, out, plan, sx, sy, sz, tx, ty,
-                         tz, wx, wy, wz, fov, cnt, batch, vstride);
-  else
-    launch_push_batch<1>(grid, block, s, vals, out, plan, sx, sy, sz, tx, ty,
-                         tz, wx, wy, wz, fov, cnt, batch, vstride);
-  return (int)cudaGetLastError();
+  return launch_push((cudaStream_t)stream, vals, out, plan, fov, sx, sy, sz,
+                     tx, ty, tz, wx, wy, wz, order, cnt, batch, vstride);
 }
 
 int unires_pull_grad_batch(const float* vol, float* out, const float* m,
