@@ -185,7 +185,9 @@ DIM_Y = (181, 217, 181)
 # max|plain|. grid_sample maps each point to [-1, 1] and back, which moves
 # it by a few float32 ulps of the coordinate (1.5e-5 at 217).
 YARDSTICK_TOL = 1e-4
-KNOT_EPS = 1e-3  # pull_grad's yardstick is compared this far from knots
+# pull_grad's yardstick is compared this far from knots, the nearest
+# yardsticks this far from half-voxel ties
+KNOT_EPS = 1e-3
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 and float32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -398,10 +400,11 @@ def norm_grid(M, in_dim, out_dim, device, fov=None):
     return grid, _fov_mask(g, in_dim, fov)
 
 
-def yardstick(name, inp, M, out_dim, fov=None):
-    """The one PyTorch call that computes kernel ``name``'s function (order
-    1) on the same inputs: its library yardstick, which the port never
-    calls. Everything but that call is built here, outside the timed window.
+def yardstick(name, inp, M, out_dim, fov=None, order=1):
+    """The one PyTorch call that computes kernel ``name``'s function on the
+    same inputs: its library yardstick, which the port never calls. Order 0
+    (pull, push) samples the nearest voxel, as the port does away from
+    half-voxel ties (PyTorch rounds a tie to even, the port up). Everything but that call is built here, outside the timed window.
     A batch, ``inp`` (B, X, Y, Z) with a list of B maps ``M``, is one call
     with N = B. Returns (call, to_plain, label): ``to_plain(call())`` is the
     result in the plain version's layout."""
@@ -416,18 +419,20 @@ def yardstick(name, inp, M, out_dim, fov=None):
              [norm_grid(Mb, in_dim, out_dim, dev, fov) for Mb in Ms])
     grid = torch.cat([g for g, _ in grids])
     fov = torch.stack([m for _, m in grids])
+    mode = ("bilinear", "nearest")[order == 0]
     if name == "push":  # pull^T: scatter the FOV-masked values (atomicAdd)
         gout = (vols * fov)[:, None]
         like = torch.zeros((B, 1) + tuple(out_dim), device=dev)
         return (lambda: torch.ops.aten.grid_sampler_3d_backward(
-                    gout, like, grid, 0, 0, True, [True, False])[0],
+                    gout, like, grid, int(order == 0), 0, True,
+                    [True, False])[0],
                 lambda r: unbatch(r[:, 0]),
-                "grid_sampler_3d_backward (input grad)")
+                f"grid_sampler_3d_backward (input grad, {mode})")
     if name == "pull":
-        return (lambda: F.grid_sample(vols[:, None], grid, mode="bilinear",
+        return (lambda: F.grid_sample(vols[:, None], grid, mode=mode,
                                       padding_mode="zeros",
                                       align_corners=True),
-                lambda r: unbatch(r[:, 0] * fov), "grid_sample")
+                lambda r: unbatch(r[:, 0] * fov), f"grid_sample ({mode})")
     ones = torch.ones((B, 1) + tuple(out_dim), device=dev)
     scale = torch.tensor([2.0 / (n - 1) for n in in_dim], device=dev)
     return (lambda: torch.ops.aten.grid_sampler_3d_backward(
@@ -443,6 +448,18 @@ def off_knots(M, out_dim, device, eps=KNOT_EPS):
     ok = None
     for gd in g:
         okd = (gd - torch.round(gd)).abs() >= eps
+        ok = okd if ok is None else ok & okd
+    return ok
+
+
+def off_ties(M, out_dim, device, eps=KNOT_EPS):
+    """Sample points at least ``eps`` from every half-voxel tie (k + 1/2)
+    on all three axes, where any two roundings to the nearest voxel
+    agree."""
+    g = _sample_coords(_as_map(M), out_dim, device)
+    ok = None
+    for gd in g:
+        okd = (gd - torch.floor(gd) - 0.5).abs() >= eps
         ok = okd if ok is None else ok & okd
     return ok
 
@@ -521,6 +538,7 @@ def kernel_cases(device="cuda"):
         ("pull", "init", vol_x, M_init, DIM_Y, {}),
         ("pull", "order0", vol_y, M, po.dim_yx, dict(order=0)),
         ("pull", "large", vol_y, M_large, dim_l, {}),
+        ("pull", "coreg", vol_y, M_coreg, DIM_Y, {}),
         ("push", "fit", vals, M, DIM_Y, dict(Minv=Minv)),
         ("push", "order0", vals, M, DIM_Y, dict(order=0, Minv=Minv)),
         ("push", "large", vals_l, M_large, DIM_Y, {}),
@@ -608,20 +626,26 @@ def _measure(name, case, inp, Mc, out_dim, kw):
             f"{ms:.4f} ms (host {host_ms:.4f} ms) | plain {plain_ms:.4f} "
             f"ms | {gbps:.1f} GB/s | "
             f"bound {bnd:.4f} ms ({bound_by}) | share {bnd / ms:.1%}")
-    lib_ms = lib_call = None
-    if order == 1:
-        call, to_plain, lib_call = yardstick(name, inp, Mc, out_dim,
-                                             kw.get("fov"))
-        lib = to_plain(call())
-        sel = (off_knots(Mc, out_dim, inp.device)[..., None]
-               if name == "pull_grad" else torch.ones_like(got, dtype=bool))
-        lib_err = float(((lib - want) * sel).abs().max())
-        lib_tol = YARDSTICK_TOL * float(want.abs().max())
-        require(lib_err <= lib_tol, f"{label}: yardstick {lib_call} err "
-                f"{lib_err} > {lib_tol}")
-        lib_ms = _time_ms(call)
-        line += (f" | {lib_call} {lib_ms:.4f} ms (err {lib_err:.3e}) | "
-                 f"kernel/library {ms / lib_ms:.3f}")
+    call, to_plain, lib_call = yardstick(name, inp, Mc, out_dim,
+                                         kw.get("fov"), order)
+    lib, ref = to_plain(call()), want
+    sel = torch.ones_like(got, dtype=bool)
+    if name == "pull_grad":
+        sel = off_knots(Mc, out_dim, inp.device)[..., None]
+    elif order == 0 and name == "pull":
+        sel = off_ties(Mc, out_dim, inp.device)
+    elif order == 0:  # push: the sources near a tie left out of both
+        keep = off_ties(Mc, tuple(inp.shape), inp.device).to(inp.dtype)
+        chk, chk_plain, _ = yardstick(name, inp * keep, Mc, out_dim,
+                                      kw.get("fov"), order)
+        lib, ref = chk_plain(chk()), plain_fn(inp * keep, Mc, out_dim, **kw)
+    lib_err = float(((lib - ref) * sel).abs().max())
+    lib_tol = YARDSTICK_TOL * float(ref.abs().max())
+    require(lib_err <= lib_tol, f"{label}: yardstick {lib_call} err "
+            f"{lib_err} > {lib_tol}")
+    lib_ms = _time_ms(call)
+    line += (f" | {lib_call} {lib_ms:.4f} ms (err {lib_err:.3e}) | "
+             f"kernel/library {ms / lib_ms:.3f}")
     print(line)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                 bound_by=bound_by, library_ms=lib_ms, library_call=lib_call)
@@ -657,6 +681,20 @@ def batch_case(name, device="cuda"):
                                       dtype=np.float32)).to(device)
     return (inp, Ms, {}, dim_yx,
             lambda b: fn_plain(inp[b], Ms[b], dim_yx))
+
+
+def bench_pull_cases(device="cuda"):
+    """The forward pull of each channel of the misaligned bench fit after
+    its init (``_bench_init``, as phase 5 runs it), as ``kernel_cases``
+    lists a case: the channel's recon sampled on its observation's
+    ``dim_yx`` at ``obs_dyn_args(po, "super-resolution")``. Every sample
+    point lies inside the volume, unlike those of the ``fit`` case, whose
+    output grid overhangs the volume along z."""
+    x, y, _ = _bench_init(device, DIM_Y, 8)
+    return [("pull", f"bench{c}", yc.dat,
+             obs_dyn_args(xc[0].po, "super-resolution")[0],
+             tuple(xc[0].po.dim_yx), {})
+            for c, (xc, yc) in enumerate(zip(x, y))]
 
 
 def _measure_batch(name, device="cuda"):
@@ -734,6 +772,8 @@ def phase_kernels(device="cuda"):
         r = _measure(*c)
         if c[1] == "fit":
             rec[c[0]] = r
+        elif c[1] == "order0":  # after the kernel's fit case
+            rec[c[0]]["order0"] = r
     _adjoint(cases, "fit")
 
     cases = fov_kernel_cases(device)

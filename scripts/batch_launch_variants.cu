@@ -19,28 +19,45 @@
 namespace {
 
 template <int ORDER>
-__global__ void __launch_bounds__(kLanesZ * kRowsY)
+__global__ void __launch_bounds__(32 * kPullWarps)
     pull_zfold(const float* __restrict__ vol, float* __restrict__ out,
                const float* __restrict__ mp, int nx, int ny, int nz, int ox,
                int oy, int oz, int batch, long long vstride) {
-  const int zblocks = (ox + kRowsX - 1) / kRowsX;
+  const int zblocks = (ox + kPullRX - 1) / kPullRX;
   const int b = blockIdx.z / zblocks;
-  pull_tile<ORDER, false>(vol + b * vstride,
-                          out + b * ((long long)ox * oy * oz), mp + 12 * b,
-                          nx, ny, nz, ox, oy, oz, Box(),
-                          blockIdx.z - b * zblocks);
+  pull_tile<ORDER, false>(
+      vol + b * vstride, out + b * ((long long)ox * oy * oz), mp + 12 * b,
+      nx, ny, nz, ox, oy, oz, Box(), blockIdx.z - b * zblocks);
 }
 
 template <int ORDER>
-__global__ void __launch_bounds__(kLanesZ * kRowsY)
+__global__ void __launch_bounds__(32 * kPullWarps)
     pull_inter(const float* __restrict__ vol, float* __restrict__ out,
                const float* __restrict__ mp, int nx, int ny, int nz, int ox,
                int oy, int oz, int batch, long long vstride) {
   const int zb = blockIdx.z / batch;
   const int b = blockIdx.z - zb * batch;
-  pull_tile<ORDER, false>(vol + b * vstride,
-                          out + b * ((long long)ox * oy * oz), mp + 12 * b,
-                          nx, ny, nz, ox, oy, oz, Box(), zb);
+  pull_tile<ORDER, false>(
+      vol + b * vstride, out + b * ((long long)ox * oy * oz), mp + 12 * b,
+      nx, ny, nz, ox, oy, oz, Box(), zb);
+}
+
+// the pull variant at order ORDER: its tile's block, the grid's z times
+// the batch
+template <int ORDER>
+void launch_pull_variant(int variant, cudaStream_t s, const float* vol,
+                         float* out, const float* m, int nx, int ny, int nz,
+                         int ox, int oy, int oz, int batch,
+                         long long vstride) {
+  const dim3 block(32, kPullWarps);
+  dim3 grid = pull_grid(ox, oy, oz);
+  grid.z *= (unsigned)batch;
+  if (variant == 0)
+    pull_zfold<ORDER><<<grid, block, 0, s>>>(vol, out, m, nx, ny, nz, ox, oy,
+                                            oz, batch, vstride);
+  else
+    pull_inter<ORDER><<<grid, block, 0, s>>>(vol, out, m, nx, ny, nz, ox, oy,
+                                            oz, batch, vstride);
 }
 
 constexpr int kPushThreads = kPushLanesZ * kPushLanesY * kPushLanesX;
@@ -102,24 +119,13 @@ extern "C" {
 int variant_pull(int variant, const float* vol, float* out, const float* m,
                  int nx, int ny, int nz, int ox, int oy, int oz, int order,
                  int batch, long long vstride, void* stream) {
-  const int zb = (ox + kRowsX - 1) / kRowsX;
-  const dim3 block(kLanesZ, kRowsY);
-  const dim3 grid((unsigned)((oz + kLanesZ - 1) / kLanesZ),
-                  (unsigned)((oy + kRowsY - 1) / kRowsY),
-                  (unsigned)(zb * batch));
   cudaStream_t s = (cudaStream_t)stream;
-  if (variant == 0 && order == 0)
-    pull_zfold<0><<<grid, block, 0, s>>>(vol, out, m, nx, ny, nz, ox, oy, oz,
-                                        batch, vstride);
-  else if (variant == 0)
-    pull_zfold<1><<<grid, block, 0, s>>>(vol, out, m, nx, ny, nz, ox, oy, oz,
-                                        batch, vstride);
-  else if (order == 0)
-    pull_inter<0><<<grid, block, 0, s>>>(vol, out, m, nx, ny, nz, ox, oy, oz,
-                                         batch, vstride);
+  if (order == 0)
+    launch_pull_variant<0>(variant, s, vol, out, m, nx, ny, nz, ox, oy, oz,
+                           batch, vstride);
   else
-    pull_inter<1><<<grid, block, 0, s>>>(vol, out, m, nx, ny, nz, ox, oy, oz,
-                                         batch, vstride);
+    launch_pull_variant<1>(variant, s, vol, out, m, nx, ny, nz, ox, oy, oz,
+                           batch, vstride);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 """Time the pull, push and pull_grad kernels of a checkout of this repository
 on one card.
 
-    python3 scripts/cuda_kernel_times.py [--tree PATH] [--label NAME]
+    python3 scripts/cuda_kernel_times.py [--tree PATH] [--label NAME] [--warm]
 
 Loads ``--tree``'s own ``chip_smoke.py`` (default: this checkout), which
 binds that tree's ``unires_torch``, so that the kernels of two commits (for
@@ -11,12 +11,17 @@ events around each call, L2 flushed before it; ``_host_ms``: synchronised
 calls as a caller sees them). For each case of phase 3 (``kernel_cases``,
 then the FOV = true cases of ``fov_kernel_cases`` and each kernel's batched
 launch of ``KERNEL_BATCH`` volumes at the fit's shapes, as this tree's
-``chip_smoke.batch_case`` makes them, where the tree has them) it prints the max abs difference
+``chip_smoke.batch_case`` makes them, where the tree has them, then pull at
+the misaligned bench fit's own maps, as this tree's
+``chip_smoke.bench_pull_cases`` makes them) it prints the max abs difference
 between kernel and plain version (must be 0), the kernel's device ms per
 call three times, and its host ms. A tree whose kernels read
 their maps from device memory (``ops.resample.push_plan`` exists) is given
 the maps as CUDA tensors and push its plan, as its fit chunk launches them;
-an older tree takes the host maps it was written for.
+an older tree takes the host maps it was written for. ``--warm`` leaves
+L2 unflushed before each call (the tree's ``_flush_l2`` replaced by a no-op),
+so that a kernel reads inputs that the previous call left in L2, as the
+kernels of the fit's captured graph mostly do.
 """
 import argparse
 import importlib.util
@@ -31,6 +36,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(HERE))
     ap.add_argument("--label", default="this")
+    ap.add_argument("--warm", action="store_true")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -38,6 +44,9 @@ def main():
                                                   tree / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)  # binds the tree's unires_torch
+    if args.warm:
+        cs._flush_l2 = lambda: None
+        args.label += " warm"
 
     import torch
     from unires_torch.ops import resample as tr
@@ -75,6 +84,12 @@ def main():
             kern, err = batch_case(funcs, name)
             report(cs, args.label, f"{name}/batch{cs.KERNEL_BATCH}", kern,
                    err, "device")
+    for name, case, inp, Mc, out_dim, kw in here().bench_pull_cases("cuda"):
+        M = torch.from_numpy(tr._as_map(Mc)).cuda() if device_maps else Mc
+        kern = lambda: tr.pull(inp, M, out_dim)  # noqa: E731
+        err = float((kern() - tr.pull_plain(inp, Mc, out_dim)).abs().max())
+        report(cs, args.label, f"{name}/{case}", kern, err,
+               "device" if device_maps else "host")
 
 
 def report(cs, label, case, kern, err, maps):
@@ -85,6 +100,18 @@ def report(cs, label, case, kern, err, maps):
           + f" | host ms {host:.4f}")
 
 
+def here():
+    """This tree's ``chip_smoke``, loaded once, its cases built with the
+    timed tree's ``unires_torch`` (the one imported first)."""
+    if "chip_smoke_here" not in sys.modules:
+        spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                      HERE / "chip_smoke.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules["chip_smoke_here"] = mod
+    return sys.modules["chip_smoke_here"]
+
+
 def batch_case(funcs, name):
     """The batched launch of phase 3, its inputs built by this tree's
     ``chip_smoke.batch_case`` with the timed tree's ``unires_torch`` (the
@@ -93,11 +120,7 @@ def batch_case(funcs, name):
     import numpy as np
     import torch
 
-    spec = importlib.util.spec_from_file_location("chip_smoke_here",
-                                                  HERE / "chip_smoke.py")
-    here = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(here)
-    inp, Ms, kw, out_dim, plain = here.batch_case(name)
+    inp, Ms, kw, out_dim, plain = here().batch_case(name)
     Md = torch.from_numpy(np.ascontiguousarray(Ms)).cuda()
     kern = lambda: funcs[name][0](inp, Md, out_dim, **kw)  # noqa: E731
     want = torch.stack([plain(b) for b in range(len(Ms))])

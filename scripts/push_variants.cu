@@ -23,6 +23,10 @@
 
 namespace {
 
+// target: a block of 8 lanes along z times 16 rows along y
+constexpr int kLanesZ = 8;
+constexpr int kRowsY = 16;
+
 template <int ORDER, bool FOV>
 __device__ __forceinline__ void per_target(const float* __restrict__ vals,
                                            float* __restrict__ out,

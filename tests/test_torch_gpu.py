@@ -286,6 +286,57 @@ def test_fov_kernels_match_plain(cuda, name, mat, out_dim, fov_name, fov,
     assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
 
 
+# pull's maps for ragged tiles: a rotation, and a map whose floors step by
+# 0 or 2 between neighbouring z lanes (M[2, 2] = 1.07) and whose a and b
+# change along a warp's row
+PULL_MAPS = [
+    tr.affine_to_M(affine_matrix_classic([0.6, -0.4, 0.3, 0.05, -0.03,
+                                          0.04])),
+    np.array([[1.0, 0.0, 0.04, 0.3], [0.0, 1.0, -0.05, 0.2],
+              [0.0, 0.0, 1.07, -0.6]], np.float32),
+]
+
+
+@pytest.mark.parametrize("fov_name,fov", [("default", None)] + FOVS)
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("out_dim", [(3, 4, 1), (5, 3, 31), (4, 5, 33),
+                                     (3, 2, 185), (1, 5, 40), (7, 9, 64)],
+                         ids=str)
+def test_pull_kernel_ragged_tiles(cuda, out_dim, order, fov_name, fov):
+    """Output extents that are not multiples of pull's tile (a warp of 32
+    z lanes, 2 outputs along z per thread, 4 warps along y), one x row or
+    an odd number of them, with the default bounds and the fov boxes:
+    exact."""
+    vol = _vol(IN_DIM, 14, cuda)
+    for M in PULL_MAPS:
+        got = tr.pull(vol, M, out_dim, order=order, fov=fov)
+        torch.cuda.synchronize()
+        want = tr.pull_plain(vol, M, out_dim, order=order, fov=fov)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fov_name,fov", [("default", None), ("box", np.array(
+    [[0.2, 5.6], [0.7, 7.1], [2.3, 180.2]], np.float32))])
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("shift_z,out_dim", [(4.2, (5, 7, 150)),
+                                             (-1.3, (5, 7, 203))])
+def test_pull_kernel_long_z_interior_and_overhang(cuda, shift_z, out_dim,
+                                                  order, fov_name, fov):
+    """A volume long along z, so that most of pull's warps (32 lanes along
+    z) have every corner inside and take the fast path: all inside (a
+    shift of 4.2), and an output grid that overhangs the volume along z
+    (-1.3), whose first and last warps of a row take the edge path. Exact
+    either way."""
+    vol = _vol((7, 9, 200), 16, cuda)
+    M = tr.affine_to_M(affine_matrix_classic([0.7, 0.9, shift_z, 0.01, -0.02,
+                                              0.015]))
+    got = tr.pull(vol, M, out_dim, order=order, fov=fov)
+    torch.cuda.synchronize()
+    want = tr.pull_plain(vol, M, out_dim, order=order, fov=fov)
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("name,mat,out_dim", MAPS)
 def test_push_window_kernel_matches_plain(cuda, name, mat, out_dim):
     """The default window, the same given explicitly, and the anchor alone
@@ -556,6 +607,26 @@ def test_batched_launch_matches_unbatched(cuda, name, order, stride):
         plain = getattr(tr, f"{name}_plain")(vols, Ms, out_dim, **kw)
     assert float(want.abs().max()) > 0
     assert torch.equal(got, want) and torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("B", [2, 3])
+def test_pull_batch_ragged_matches_unbatched(cuda, B, order):
+    """pull's batched launch of B volumes at an output grid that is not a
+    multiple of its tile, against B unbatched launches and the plain
+    version: exact, one count."""
+    out_dim = (5, 7, 33)
+    Ms = _batch_maps(B, 13)
+    Md = torch.from_numpy(Ms).to(cuda)
+    vols = _vol((B,) + IN_DIM, 15, cuda)
+    n0 = tr.pull.launches
+    got = tr.pull(vols, Md, out_dim, order=order)
+    assert tr.pull.launches == n0 + 1
+    want = torch.stack([tr.pull(vols[b], Md[b], out_dim, order=order)
+                        for b in range(B)])
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want)
+    assert torch.equal(got, tr.pull_plain(vols, Ms, out_dim, order=order))
 
 
 def test_captured_batch_matches_uncaptured(cuda):

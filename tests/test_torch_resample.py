@@ -669,6 +669,174 @@ def test_pull_grad_shared_products_equal_plain_bitwise(name, M, out_dim):
     assert torch.equal(got, want)
 
 
+# --- the pull kernel's tile ---------------------------------------------------
+# A thread computes TZ outputs along z (k0 + LZ t, lanes LZ apart) in each
+# of RX rows along x, a lane or row beyond the grid taking the grid's last
+# (the kernel's: LZ 32, TZ 2, RX 2). The partial sums
+# M[d,0] i + M[d,1] j are rounded
+# once per row and M[d,2] k once per lane, then each output finishes
+# (s + M[d,2] k) + M[d,3]. The floors come from a rounding-down add of
+# 1.5 * 2^23 (the bits of the sum less those of 1.5 * 2^23 are the integer
+# floor); a thread whose points all have every corner inside the volume
+# reads them without a test, any other reads each point's corners at
+# indices clamped into the grid and zeroes those outside (edge_corners).
+# Order 0 reads the voxel at floor(g + 1/2) by the same add. This must
+# give pull_plain's bits.
+
+_RD = np.float32(12582912.0)  # 1.5 * 2^23
+_TILE = dict(LZ=32, TZ=2, RX=2)
+
+
+def _add_rd(a, b):
+    """a + b rounded down in float32: the rounded sum, one float below it
+    where TwoSum's exact error is negative."""
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    return np.where(err < 0, np.nextafter(s, np.float32(-np.inf)), s)
+
+
+def _floor_rd(x):
+    """(floor(x) as a float, as unsigned bits less those of 1.5 * 2^23)."""
+    t = _add_rd(x, _RD)
+    fi = t.view(np.uint32) - _RD.view(np.uint32)  # wraps as the kernel's
+    return t - _RD, fi
+
+
+def _pull_tile(vol, M, out_dim, order=1, fov=None, LZ=8, TZ=1, RX=2):
+    """pull as the kernel's tile computes it, on the CPU: numpy float32,
+    every point indexed (x row block, q, j, z block, t, lane)."""
+    M = tr._as_map(M)
+    vol = vol.numpy()
+    n = X, Y, Z = vol.shape
+    ox, oy, oz = out_dim
+    nxb, nzb = -(-ox // RX), -(-oz // (LZ * TZ))
+    iq = np.arange(nxb)[:, None] * RX + np.arange(RX)
+    kt = (np.arange(nzb)[:, None, None] * LZ * TZ
+          + LZ * np.arange(TZ)[:, None] + np.arange(LZ))
+    i = np.minimum(iq, ox - 1).astype(np.float32)[:, :, None, None, None,
+                                                   None]
+    j = np.arange(oy, dtype=np.float32)[:, None, None, None]
+    k = np.minimum(kt, oz - 1).astype(np.float32)
+    g = []
+    for d in range(3):
+        s = M[d, 0] * i + M[d, 1] * j  # once per row
+        g.append(np.broadcast_to((s + M[d, 2] * k) + M[d, 3],
+                                 (nxb, RX, oy, nzb, TZ, LZ)))
+    keep = tr._fov_mask([torch.from_numpy(np.array(gd)) for gd in g], n,
+                        tr._as_fov(fov)).numpy()
+    flat = vol.reshape(-1)
+    if order == 0:
+        a = [_floor_rd(gd + np.float32(0.5))[1] for gd in g]
+        ok = keep & (a[0] < X) & (a[1] < Y) & (a[2] < Z)
+        a = [np.where(ok, a[d], 0).astype(np.int64) for d in range(3)]
+        res = np.where(ok, flat[(a[0] * Y + a[1]) * Z + a[2]], np.float32(0))
+    else:
+        fl, fi = zip(*[_floor_rd(gd) for gd in g])
+        # a thread's points: axes q (1) and t (4) of (xb, q, j, zb, t, lane)
+        inner = np.ones(g[0].shape, bool)
+        for d in range(3):
+            inner &= fi[d] < n[d] - 1
+        inner = np.broadcast_to(inner.all(axis=(1, 4), keepdims=True),
+                                inner.shape)
+        # floor_rd's floor on the fast path, floorf's on the edge path
+        fl = [np.where(inner, fl[d], np.floor(g[d])) for d in range(3)]
+        w = [(np.float32(1) - (g[d] - fl[d]), g[d] - fl[d]) for d in range(3)]
+        res = np.zeros(g[0].shape, np.float32)
+        for da, db in np.ndindex(2, 2):
+            wab = w[0][da] * w[1][db]
+            for dc in (0, 1):
+                e = (da, db, dc)
+                c = [fi[d] + np.uint32(e[d]) for d in range(3)]
+                ok = inner | ((c[0] < X) & (c[1] < Y) & (c[2] < Z))
+                c = [np.minimum(c[d], n[d] - 1).astype(np.int64)
+                     for d in range(3)]
+                v = np.where(ok, flat[(c[0] * Y + c[1]) * Z + c[2]],
+                             np.float32(0))
+                res = res + (wab * w[2][dc]) * v
+        res = np.where(keep, res, np.float32(0))
+    # the stores: the points inside the grid
+    r = res.reshape(nxb * RX, oy, -1)
+    kt = kt.reshape(-1)
+    r = r[iq.reshape(-1) < ox][:, :, kt < oz]
+    return torch.from_numpy(np.ascontiguousarray(
+        r[:, :, np.argsort(kt[kt < oz])]))
+
+
+def _tile_test_maps():
+    """(name, M, input grid, output grid): the identity, the fit's map of
+    chip_smoke.py on a small volume, 45 degrees x 3 and x 1/4, and a map
+    whose floors step by 0 or 2 between neighbouring z lanes and whose a
+    and b change along a warp's row."""
+    import chip_smoke
+
+    _, M_fit, _ = chip_smoke.fit_case()
+    rot = affine_matrix_classic([0, 0, 0, np.pi / 4, np.pi / 4,
+                                 np.pi / 4])[:3, :3]
+    steps = np.array([[1.0, 0.0, 0.04, 0.3], [0.0, 1.0, -0.05, 0.2],
+                      [0.0, 0.0, 1.07, 0.6]], np.float32)
+    yield "identity", tr.affine_to_M(np.eye(4)), IN_DIM
+    yield "fit", M_fit, (12, 14, 60)
+    yield "rot45_x3", tr.affine_to_M(chip_smoke.centred_map(
+        3.0 * rot, IN_DIM, (6, 6, 40), offset=0.137)), IN_DIM
+    yield "rot45_quarter", tr.affine_to_M(chip_smoke.centred_map(
+        0.25 * rot, IN_DIM, (8, 9, 40), offset=0.137)), IN_DIM
+    yield "steps", steps, (12, 13, 60)
+
+
+# fov bounds that cut the small output grids of the tile's tests on x, y
+# and z (off the sample points)
+TILE_FOV = np.array([[0.6, 2.4], [0.55, 2.7], [2.2, 30.6]], np.float32)
+
+
+@pytest.mark.parametrize("fov_name,fov", [("default", None),
+                                          ("box", TILE_FOV)])
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("out_dim", [(3, 4, 1), (5, 3, 31), (1, 4, 33),
+                                     (3, 2, 185), (1, 1, 64), (2, 5, 65),
+                                     (7, 4, 96)], ids=str)
+@pytest.mark.parametrize("name,M,in_dim", list(_tile_test_maps()),
+                         ids=[m[0] for m in _tile_test_maps()])
+def test_pull_tile_equals_plain_bitwise(name, M, in_dim, out_dim, order,
+                                        fov_name, fov):
+    vol = torch.from_numpy(_vol(in_dim, 41))
+    want = tr.pull_plain(vol, M, out_dim, order=order, fov=fov)
+    got = _pull_tile(vol, M, out_dim, order=order, fov=fov, **_TILE)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("out_dim", [(5, 7, 37), (2, 3, 64)], ids=str)
+@pytest.mark.parametrize("order", [0, 1])
+def test_pull_tile_batch_of_stride_zero(order, out_dim):
+    """A batch read with stride 0: one volume at three maps, volume by
+    volume as the batched launch computes it."""
+    maps = list(_tile_test_maps())
+    vol = torch.from_numpy(_vol(IN_DIM, 42))
+    batch = vol.expand((3,) + IN_DIM)
+    assert batch.stride(0) == 0
+    Ms = np.stack([maps[k][1] for k in (1, 3, 4)])
+    want = tr.pull_plain(batch, Ms, out_dim, order=order)
+    got = torch.stack([_pull_tile(batch[b], Ms[b], out_dim, order=order,
+                                  **_TILE) for b in range(3)])
+    assert want.abs().max() > 0
+    assert torch.equal(got, want)
+
+
+def test_rounding_down_add_is_the_floor():
+    """The floor by a rounding-down add, at the edges where it must hold
+    (ties, tiny negatives, +-2^22) and fail the unsigned test (beyond)."""
+    x = np.array([0.0, -0.0, 1e-30, -1e-30, 0.5, -0.5, 2.9999998, -2.9999998,
+                  4194303.5, -4194303.5, 4194304.0, -4194304.0, 1e9, -1e9],
+                 np.float32)
+    fl, fi = _floor_rd(x)
+    small = np.abs(x) < 2 ** 22
+    assert np.array_equal(fl[small], np.floor(x[small]))
+    assert np.array_equal(fi[small & (x >= 0)],
+                          np.floor(x[small & (x >= 0)]).astype(np.uint32))
+    assert (fi[~small] >= 2 ** 22 - 2).all()
+    assert (fi[x < 0] >= 2 ** 22 - 2).all()  # negative: beyond any grid
+
+
 @pytest.mark.parametrize("given_minv", [False, True])
 @pytest.mark.parametrize("order", [0, 1])
 @pytest.mark.parametrize("name,lin", REACH_MAPS)
@@ -782,6 +950,34 @@ def test_yardstick_matches_plain(name, mat, out_dim, kernel):
         keep = chip_smoke.off_knots(M, dst, "cpu")[..., None]
         got, want = got * keep, want * keep
     _close(got.numpy(), want.numpy(), np.abs(want.numpy()).max())
+
+
+@pytest.mark.parametrize("kernel", ["pull", "push"])
+@pytest.mark.parametrize("name,mat,out_dim", MAPS)
+def test_nearest_yardstick_matches_plain(name, mat, out_dim, kernel):
+    """The order-0 yardsticks (nearest ``grid_sample`` and its input
+    gradient) compute the plain version's function away from half-voxel
+    ties, where PyTorch rounds to even and the port up: pull compared at
+    the points off the ties, push with the sources near a tie left out of
+    both."""
+    import chip_smoke
+
+    M = tr.affine_to_M(mat)
+    if kernel == "push":
+        inp = torch.from_numpy(_vol(out_dim, 14))
+        inp = inp * chip_smoke.off_ties(M, out_dim, "cpu")
+        want, dst = tr.push_plain(inp, M, IN_DIM, order=0), IN_DIM
+        keep = torch.ones(IN_DIM, dtype=torch.bool)
+    else:
+        inp, dst = torch.from_numpy(_vol(IN_DIM, 15)), out_dim
+        want = tr.pull_plain(inp, M, dst, order=0)
+        keep = chip_smoke.off_ties(M, dst, "cpu")
+    assert keep.float().mean() > 0.9
+    call, to_plain, label = chip_smoke.yardstick(kernel, inp, M, dst, order=0)
+    assert "nearest" in label
+    got = to_plain(call())
+    _close((got * keep).numpy(), (want * keep).numpy(),
+           np.abs(want.numpy()).max())
 
 
 @pytest.mark.parametrize("kernel", ["pull", "push", "pull_grad"])

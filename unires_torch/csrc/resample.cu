@@ -31,10 +31,12 @@
 
 namespace {
 
-// pull: a block is kLanesZ lanes along z times kRowsY rows along y, so a
-// warp covers 8 (z) x 4 (y) outputs
-constexpr int kLanesZ = 8;
-constexpr int kRowsY = 16;
+// pull: a block of kPullWarps warps covers kPullTZ x 32 outputs along z,
+// kPullWarps rows along y and kPullRX rows along x, kPullTZ x kPullRX
+// outputs per thread; see pull_tile
+constexpr int kPullWarps = 4;
+constexpr int kPullTZ = 2;
+constexpr int kPullRX = 2;
 // push: a thread owns a tile of kPushTX (x) x kPushTY (y) x kPushTZ (z)
 // targets, a block is kPushLanesZ (z) x kPushLanesY (y) x kPushLanesX (x)
 // threads, so a warp covers 2 (z) x 4 (y) x 4 (x) tiles; see push_tile
@@ -44,7 +46,7 @@ constexpr int kPushTZ = 4;
 constexpr int kPushLanesZ = 2;
 constexpr int kPushLanesY = 4;
 constexpr int kPushLanesX = 16;
-// pull and pull_grad: output rows along x a thread computes (i and i + 1)
+// pull_grad: output rows along x a thread computes (i and i + 1)
 constexpr int kRowsX = 2;
 // pull_grad: a warp covers 16 (z) x 2 (y) outputs; see pull_grad_kernel
 constexpr int kGradLanesZ = 16;
@@ -214,92 +216,260 @@ __device__ __forceinline__ void gather_corners(
 // Bound: device memory in principle (the input read once and the output
 // written once: 17 us at the fit's 181x217x181 -> 181x217x185 on an H100 at
 // 3.35 TB/s), in practice the issue rate: the plain version's arithmetic
-// (the map, floors, 12 weight products, 8 multiply-adds, about 60 float
-// operations per output) plus the gather's addressing.
+// (the map, floors, 12 weight products, 8 multiply-adds, each rounded on
+// its own: no FMA) plus the gather's addressing.
 //
-// Design: the fewest instructions around that arithmetic. The launch grid
-// is (z / kLanesZ, y / kRowsY, x / kRowsX), so no index is split at run
-// time; a warp covers 8 (z) x 4 (y) outputs (stores in 32-byte sectors, and
-// its corner reads fall on a few input rows, served by L1). A thread
-// computes the outputs of rows i and i + 1, whose corner planes overlap in
-// L1, and reads their corners through gather_corners (an interior fast
-// path without bound tests). Staging each tile's input box in shared memory
-// (the TPU kernel's VMEM window) measured slower at every tile size tried,
-// L1 already serving the overlap (scripts/cuda_staged_variants.py reruns
-// it). The fov override is the instantiation FOV = true, which tests every
-// sample point against the caller's bounds (gather_corners); the default
-// instantiation is the kernel without it, instruction for instruction.
+// Design: a block of 4 warps covers 64 (z) x 4 (y) x 2 (x) outputs, 4 per
+// thread; each warp is one y row of 32 lanes along z, so that each corner
+// load touches one or two 128-byte lines. The outputs of a thread (k and
+// k + 32 of rows i and i + 1) share the rounded partial sums M[d,0] i +
+// M[d,1] j of a row and M[d,2] k of a lane, and each finishes map_axis's
+// sum in map_axis's order (pull_points), so the sample points stay
+// bitwise those of push and of the plain version. The floors come from a
+// rounding-down add (floor_rd), with no floorf or float -> int cast, which
+// run on the conversion pipe. Order 1 reads its corners by gather_rd:
+// where every corner of a thread's points lies inside the volume, 4 row
+// pointers and no test; near the edge, each corner at an index clamped
+// into the grid and zeroed outside (edge_corners: a warp with one lane near
+// the edge runs it besides the fast path, so it is kept short). The fov
+// override is the instantiation FOV = true, which tests every sample point
+// against the caller's bounds.
+//
+// On an H100 at the bench fit's own maps, whose sample points all lie
+// inside the volume, this tile is 20-23 % faster than the previous one, a
+// warp of 8 (z) x 4 (y) outputs; at a map whose output grid overhangs the
+// volume along z (chip_smoke.py's "fit" case) it is 4-7 % slower, every
+// warp of a row's first and last blocks running the edge path. Mapping the
+// lanes of such blocks as 8 (z) x 4 (y), chosen per block from the map,
+// won there but cost every interior block 5-7 %, more than it saved over
+// a converged fit's launches (scripts/cuda_pull_variants.py times it, the
+// fixed tiles, a choice by a block barrier, z edges folded into the fast
+// path by selects, and the c + 1 corners from the next lane by a shuffle).
+// Staging each tile's input box in shared memory measured slower at every
+// tile size tried (scripts/cuda_staged_variants.py).
 //
 // The batched launch (pull_batch_kernel) covers B volumes with one volume's
-// launch grid: each thread computes its output position in volume 0, 1, ...
-// in turn, volume b at vol + b * vstride, its map at mp + 12 b and its
-// output at out + b * ox * oy * oz. Each output is computed by the same tile
-// code (pull_tile) as in the unbatched launch, so the two agree to the bit;
-// the unbatched kernel is the old one, instruction for instruction. Folding
-// the batch into the grid's z instead (a block index split by a division)
-// measured slower, with the volumes slowest or fastest
-// (scripts/cuda_batch_variants.py reruns both).
+// launch grid: each thread computes its outputs in volume 0, 1, ... in
+// turn, volume b at vol + b * vstride, its map at mp + 12 b and its output
+// at out + b * ox * oy * oz, each by the same tile code (pull_tile) as the
+// unbatched launch, so the two agree to the bit. The batch folded into the
+// grid's z (volumes slowest or fastest) is timed by
+// scripts/cuda_batch_variants.py.
 // ---------------------------------------------------------------------------
+
+// 1.5 * 2^23: for |x| < 2^22, x + kRd rounded down is kRd + floor(x), held
+// exactly (the float32 spacing there is 1)
+constexpr float kRd = 12582912.0f;
+constexpr unsigned kRdBits = 0x4B400000u;  // the bits of kRd
+
+// floor(x) as an unsigned integer by a rounding-down add: t = x + kRd
+// rounded down, floor(x) = t - kRd exactly (*fl) and its integer is t's bits
+// less kRd's. The unsigned test of that integer against n <= 2^22 holds iff
+// floor(x) lies in [0, n), whatever x: for |x| >= 2^22 t's bits lie outside
+// [kRdBits, kRdBits + 2^22).
+__device__ __forceinline__ unsigned floor_rd(float x, float* fl) {
+  const float t = __fadd_rd(x, kRd);
+  *fl = __fsub_rn(t, kRd);
+  return __float_as_uint(t) - kRdBits;
+}
+
+// The 8 corners of a point near the volume's edge, from its floors' bits
+// fi (floor_rd): a corner outside the volume reads 0 (it then adds w * 0,
+// as in the plain version), the others are read at their index. An
+// outside index (fi + 1 past the grid, or a negative floor, whose bits wrap
+// above any grid) is clamped into the grid so that every address is valid;
+// its value is never used.
+__device__ __forceinline__ void edge_corners(const float* __restrict__ vol,
+                                             const unsigned fi[3], int nx,
+                                             int ny, int nz, float v[8]) {
+  const unsigned n[3] = {(unsigned)nx, (unsigned)ny, (unsigned)nz};
+  bool ok[3][2];
+  unsigned c[3][2];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      ok[d][e] = fi[d] + e < n[d];
+      c[d][e] = min(fi[d] + e, n[d] - 1);
+    }
+#pragma unroll
+  for (int da = 0; da < 2; ++da)
+#pragma unroll
+    for (int db = 0; db < 2; ++db) {
+      const float* row = vol + (c[0][da] * ny + c[1][db]) * nz;
+#pragma unroll
+      for (int dc = 0; dc < 2; ++dc)
+        v[4 * da + 2 * db + dc] = (ok[0][da] & ok[1][db] & ok[2][dc])
+                                      ? __ldg(row + c[2][dc])
+                                      : 0.0f;
+    }
+}
+
+// gather_corners for P points, the floors by floor_rd in place of floorf
+// and a float -> int cast (both on the card's conversion pipe, a quarter of
+// the float32 rate or less). Where every corner of every point lies inside
+// the volume, the interior fast path of gather_corners (4 row pointers, no
+// test); elsewhere each point's corners by edge_corners, fewer
+// instructions than gather_corners' general path, which a warp runs
+// whenever one of its lanes needs it. Every point is tested against the
+// FOV (implied by the fast path for the default bounds).
+template <int P, bool FOV>
+__device__ __forceinline__ void gather_rd(const float* __restrict__ vol,
+                                          float g[P][3], int nx, int ny,
+                                          int nz, float fl[P][3],
+                                          float v[P][8], bool keep[P],
+                                          const Box& fov) {
+  unsigned fi[P][3];
+  bool inner = true;
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) fi[q][d] = floor_rd(g[q][d], &fl[q][d]);
+    inner = inner & (fi[q][0] < (unsigned)(nx - 1)) &
+            (fi[q][1] < (unsigned)(ny - 1)) & (fi[q][2] < (unsigned)(nz - 1));
+  }
+  if (inner) {
+    // every corner inside the volume, hence g inside the default FOV
+    const unsigned sxy = (unsigned)ny * nz;
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      keep[q] = FOV ? inside<true>(g[q], nx, ny, nz, fov) : true;
+      const unsigned idx = (fi[q][0] * ny + fi[q][1]) * nz + fi[q][2];
+      const float* p0 = vol + idx;
+      const float* p1 = vol + (idx + nz);
+      const float* p2 = vol + (idx + sxy);
+      const float* p3 = vol + (idx + sxy + nz);
+      v[q][0] = __ldg(p0);
+      v[q][1] = __ldg(p0 + 1);
+      v[q][2] = __ldg(p1);
+      v[q][3] = __ldg(p1 + 1);
+      v[q][4] = __ldg(p2);
+      v[q][5] = __ldg(p2 + 1);
+      v[q][6] = __ldg(p3);
+      v[q][7] = __ldg(p3 + 1);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      keep[q] = inside<FOV>(g[q], nx, ny, nz, fov);
+      // floor_rd's floor is exact for |g| < 2^22 only
+#pragma unroll
+      for (int d = 0; d < 3; ++d) fl[q][d] = floorf(g[q][d]);
+      edge_corners(vol, fi[q], nx, ny, nz, v[q]);
+    }
+  }
+}
+
+// The sample points of a thread's outputs (i0 + q, j, k0 + dz t), q < RX,
+// t < TZ, point q TZ + t (a row or lane beyond the grid takes the grid's
+// last; j is given inside it): map_axis's roundings in map_axis's order,
+// with M[d,0] i + M[d,1] j rounded once per row and M[d,2] k once per lane.
+template <int RX, int TZ>
+__device__ __forceinline__ void pull_points(const Map34& M, int i0, int ox,
+                                            int j, int k0, int dz, int oz,
+                                            float g[RX * TZ][3]) {
+  float pk[TZ][3];
+#pragma unroll
+  for (int t = 0; t < TZ; ++t) {
+    const float k = (float)min(k0 + dz * t, oz - 1);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) pk[t][d] = __fmul_rn(M.m[4 * d + 2], k);
+  }
+#pragma unroll
+  for (int q = 0; q < RX; ++q) {
+    const float i = (float)min(i0 + q, ox - 1);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float s = __fadd_rn(__fmul_rn(M.m[4 * d], i),
+                                __fmul_rn(M.m[4 * d + 1], (float)j));
+#pragma unroll
+      for (int t = 0; t < TZ; ++t)
+        g[q * TZ + t][d] = __fadd_rn(__fadd_rn(s, pk[t][d]), M.m[4 * d + 3]);
+    }
+  }
+}
+
+// One output of order 1 from its corners: the plain version's weights and
+// corner order (a, then b, then c); 0 outside the FOV.
+__device__ __forceinline__ float pull_trilinear(const float g[3],
+                                                const float fl[3],
+                                                const float v[8], bool keep) {
+  const float f0 = __fsub_rn(g[0], fl[0]);
+  const float f1 = __fsub_rn(g[1], fl[1]);
+  const float f2 = __fsub_rn(g[2], fl[2]);
+  const float wa[2] = {__fsub_rn(1.0f, f0), f0};
+  const float wb[2] = {__fsub_rn(1.0f, f1), f1};
+  const float wc[2] = {__fsub_rn(1.0f, f2), f2};
+  float s = 0.0f;
+#pragma unroll
+  for (int da = 0; da < 2; ++da)
+#pragma unroll
+    for (int db = 0; db < 2; ++db) {
+      const float wab = __fmul_rn(wa[da], wb[db]);
+#pragma unroll
+      for (int dc = 0; dc < 2; ++dc)
+        s = madd(s, __fmul_rn(wab, wc[dc]), v[4 * da + 2 * db + dc]);
+    }
+  return keep ? s : 0.0f;
+}
+
+// One output of order 0: the voxel at floor(g + 1/2) (floor_rd), 0 outside
+// the volume or the FOV.
+template <bool FOV>
+__device__ __forceinline__ float pull_nearest(const float* __restrict__ vol,
+                                              const float g[3], int nx,
+                                              int ny, int nz,
+                                              const Box& fov) {
+  float fl;
+  const unsigned a = floor_rd(__fadd_rn(g[0], 0.5f), &fl);
+  const unsigned b = floor_rd(__fadd_rn(g[1], 0.5f), &fl);
+  const unsigned c = floor_rd(__fadd_rn(g[2], 0.5f), &fl);
+  const bool ok = inside<FOV>(g, nx, ny, nz, fov) & (a < (unsigned)nx) &
+                  (b < (unsigned)ny) & (c < (unsigned)nz);
+  return ok ? __ldg(vol + (a * ny + b) * nz + c) : 0.0f;
+}
+
+// The outputs of thread (threadIdx.x, .y) of block (blockIdx.x, .y, xb):
+// warp w the y row j = jb + w, lane l the outputs k = kb + l and k + 32 of
+// rows i0 and i0 + 1 along x.
 template <int ORDER, bool FOV>
 __device__ __forceinline__ void pull_tile(const float* __restrict__ vol,
                                           float* __restrict__ out,
                                           const float* __restrict__ mp,
                                           int nx, int ny, int nz, int ox,
                                           int oy, int oz, const Box& fov,
-                                          int zb) {
+                                          int xb) {
+  constexpr int P = kPullRX * kPullTZ;
   const Map34 M = load_map_dev(mp);
-  const int j = blockIdx.y * kRowsY + threadIdx.y;
-  const int k = blockIdx.x * kLanesZ + threadIdx.x;
-  if (j >= oy || k >= oz) return;
-  const int i0 = zb * kRowsX;
-  float g[kRowsX][3];
-#pragma unroll
-  for (int q = 0; q < kRowsX; ++q)
-    map_point(M, (float)min(i0 + q, ox - 1), (float)j, (float)k, g[q]);
-  float res[kRowsX];
+  const int j = blockIdx.y * kPullWarps + threadIdx.y;
+  const int k0 = blockIdx.x * (32 * kPullTZ) + threadIdx.x;
+  const int i0 = xb * kPullRX;
+  float g[P][3], res[P];
+  pull_points<kPullRX, kPullTZ>(M, i0, ox, min(j, oy - 1), k0, 32, oz, g);
   if (ORDER == 0) {
 #pragma unroll
-    for (int q = 0; q < kRowsX; ++q) {
-      const int a = clamp_far(floorf(g[q][0] + 0.5f));
-      const int b = clamp_far(floorf(g[q][1] + 0.5f));
-      const int c = clamp_far(floorf(g[q][2] + 0.5f));
-      const bool ok = inside<FOV>(g[q], nx, ny, nz, fov) & (a >= 0) &
-                      (a < nx) & (b >= 0) & (b < ny) & (c >= 0) & (c < nz);
-      res[q] = ok ? __ldg(vol + (a * ny + b) * nz + c) : 0.0f;
-    }
+    for (int p = 0; p < P; ++p)
+      res[p] = pull_nearest<FOV>(vol, g[p], nx, ny, nz, fov);
   } else {
-    float fl[kRowsX][3], v[kRowsX][8];
-    bool keep[kRowsX];
-    gather_corners<kRowsX, FOV>(vol, g, nx, ny, nz, fl, v, keep, fov);
+    float fl[P][3], v[P][8];
+    bool keep[P];
+    gather_rd<P, FOV>(vol, g, nx, ny, nz, fl, v, keep, fov);
 #pragma unroll
-    for (int q = 0; q < kRowsX; ++q) {
-      const float f0 = __fsub_rn(g[q][0], fl[q][0]);
-      const float f1 = __fsub_rn(g[q][1], fl[q][1]);
-      const float f2 = __fsub_rn(g[q][2], fl[q][2]);
-      const float wa[2] = {__fsub_rn(1.0f, f0), f0};
-      const float wb[2] = {__fsub_rn(1.0f, f1), f1};
-      const float wc[2] = {__fsub_rn(1.0f, f2), f2};
-      // the plain version's corner order: a, then b, then c
-      float s = 0.0f;
-#pragma unroll
-      for (int da = 0; da < 2; ++da)
-#pragma unroll
-        for (int db = 0; db < 2; ++db) {
-          const float wab = __fmul_rn(wa[da], wb[db]);
-#pragma unroll
-          for (int dc = 0; dc < 2; ++dc)
-            s = madd(s, __fmul_rn(wab, wc[dc]), v[q][4 * da + 2 * db + dc]);
-        }
-      res[q] = keep[q] ? s : 0.0f;
-    }
+    for (int p = 0; p < P; ++p)
+      res[p] = pull_trilinear(g[p], fl[p], v[p], keep[p]);
   }
 #pragma unroll
-  for (int q = 0; q < kRowsX; ++q)
-    if (i0 + q < ox) out[((long long)(i0 + q) * oy + j) * oz + k] = res[q];
+  for (int q = 0; q < kPullRX; ++q)
+#pragma unroll
+    for (int t = 0; t < kPullTZ; ++t) {
+      const int k = k0 + 32 * t;
+      if ((i0 + q < ox) & (j < oy) & (k < oz))
+        out[((long long)(i0 + q) * oy + j) * oz + k] = res[q * kPullTZ + t];
+    }
 }
 
 template <int ORDER, bool FOV>
-__global__ void __launch_bounds__(kLanesZ * kRowsY)
+__global__ void __launch_bounds__(32 * kPullWarps)
     pull_kernel(const float* __restrict__ vol, float* __restrict__ out,
                 const float* __restrict__ mp, int nx, int ny, int nz, int ox,
                 int oy, int oz, Box fov, unsigned long long* cnt) {
@@ -309,7 +479,7 @@ __global__ void __launch_bounds__(kLanesZ * kRowsY)
 }
 
 template <int ORDER, bool FOV>
-__global__ void __launch_bounds__(kLanesZ * kRowsY)
+__global__ void __launch_bounds__(32 * kPullWarps)
     pull_batch_kernel(const float* __restrict__ vol, float* __restrict__ out,
                       const float* __restrict__ mp, int nx, int ny, int nz,
                       int ox, int oy, int oz, Box fov,
@@ -319,6 +489,13 @@ __global__ void __launch_bounds__(kLanesZ * kRowsY)
     pull_tile<ORDER, FOV>(vol + b * vstride,
                           out + b * ((long long)ox * oy * oz), mp + 12 * b,
                           nx, ny, nz, ox, oy, oz, fov, blockIdx.z);
+}
+
+// pull's launch grid (z / 64, y / 4, x / 2) of blocks (32, 4)
+dim3 pull_grid(int ox, int oy, int oz) {
+  return dim3((unsigned)((oz + 32 * kPullTZ - 1) / (32 * kPullTZ)),
+              (unsigned)((oy + kPullWarps - 1) / kPullWarps),
+              (unsigned)((ox + kPullRX - 1) / kPullRX));
 }
 
 // ---------------------------------------------------------------------------
@@ -865,9 +1042,10 @@ inline Box load_box(const float* fov) {
 }
 
 template <int ORDER>
-void launch_pull(dim3 grid, dim3 block, cudaStream_t s, const float* vol,
-                 float* out, const float* m, int nx, int ny, int nz, int ox,
-                 int oy, int oz, const float* fov, unsigned long long* cnt) {
+void launch_pull(cudaStream_t s, const float* vol, float* out,
+                 const float* m, int nx, int ny, int nz, int ox, int oy,
+                 int oz, const float* fov, unsigned long long* cnt) {
+  const dim3 grid = pull_grid(ox, oy, oz), block(32, kPullWarps);
   if (fov)
     pull_kernel<ORDER, true><<<grid, block, 0, s>>>(
         vol, out, m, nx, ny, nz, ox, oy, oz, load_box(fov), cnt);
@@ -927,11 +1105,11 @@ int launch_push(cudaStream_t s, const float* vals, float* out,
 }
 
 template <int ORDER>
-void launch_pull_batch(dim3 grid, dim3 block, cudaStream_t s,
-                       const float* vol, float* out, const float* m, int nx,
-                       int ny, int nz, int ox, int oy, int oz,
-                       const float* fov, unsigned long long* cnt, int batch,
-                       long long vstride) {
+void launch_pull_batch(cudaStream_t s, const float* vol, float* out,
+                       const float* m, int nx, int ny, int nz, int ox, int oy,
+                       int oz, const float* fov, unsigned long long* cnt,
+                       int batch, long long vstride) {
+  const dim3 grid = pull_grid(ox, oy, oz), block(32, kPullWarps);
   if (fov)
     pull_batch_kernel<ORDER, true><<<grid, block, 0, s>>>(
         vol, out, m, nx, ny, nz, ox, oy, oz, load_box(fov), cnt, batch,
@@ -953,17 +1131,11 @@ int unires_pull(const float* vol, float* out, const float* m,
                 const float* fov, int nx, int ny, int nz, int ox, int oy,
                 int oz, int order, unsigned long long* cnt, void* stream) {
   if ((long long)ox * oy * oz == 0) return (int)cudaGetLastError();
-  const dim3 block(kLanesZ, kRowsY);
-  const dim3 grid((unsigned)((oz + kLanesZ - 1) / kLanesZ),
-                  (unsigned)((oy + kRowsY - 1) / kRowsY),
-                  (unsigned)((ox + kRowsX - 1) / kRowsX));
   cudaStream_t s = (cudaStream_t)stream;
   if (order == 0)
-    launch_pull<0>(grid, block, s, vol, out, m, nx, ny, nz, ox, oy, oz, fov,
-                   cnt);
+    launch_pull<0>(s, vol, out, m, nx, ny, nz, ox, oy, oz, fov, cnt);
   else
-    launch_pull<1>(grid, block, s, vol, out, m, nx, ny, nz, ox, oy, oz, fov,
-                   cnt);
+    launch_pull<1>(s, vol, out, m, nx, ny, nz, ox, oy, oz, fov, cnt);
   return (int)cudaGetLastError();
 }
 
@@ -1007,17 +1179,13 @@ int unires_pull_batch(const float* vol, float* out, const float* m,
                       int oy, int oz, int order, int batch, long long vstride,
                       unsigned long long* cnt, void* stream) {
   if ((long long)ox * oy * oz * batch == 0) return (int)cudaGetLastError();
-  const dim3 block(kLanesZ, kRowsY);
-  const dim3 grid((unsigned)((oz + kLanesZ - 1) / kLanesZ),
-                  (unsigned)((oy + kRowsY - 1) / kRowsY),
-                  (unsigned)((ox + kRowsX - 1) / kRowsX));
   cudaStream_t s = (cudaStream_t)stream;
   if (order == 0)
-    launch_pull_batch<0>(grid, block, s, vol, out, m, nx, ny, nz, ox, oy, oz,
-                         fov, cnt, batch, vstride);
+    launch_pull_batch<0>(s, vol, out, m, nx, ny, nz, ox, oy, oz, fov, cnt,
+                         batch, vstride);
   else
-    launch_pull_batch<1>(grid, block, s, vol, out, m, nx, ny, nz, ox, oy, oz,
-                         fov, cnt, batch, vstride);
+    launch_pull_batch<1>(s, vol, out, m, nx, ny, nz, ox, oy, oz, fov, cnt,
+                         batch, vstride);
   return (int)cudaGetLastError();
 }
 
