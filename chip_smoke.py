@@ -173,6 +173,7 @@ from unires_torch.pipeline.fit import fit as fit_solver
 from unires_torch.pipeline.nifti import load as nifti_load
 from unires_torch.pipeline.nifti import save as nifti_save
 from unires_torch.pipeline.run import write_data
+from unires_torch.utils import trace
 from unires_torch.utils.host import to_host
 from unires_torch.utils.phantoms import brain_phantom
 
@@ -1070,9 +1071,9 @@ def _pose_error(E, dim):
 def _timed(name, record, keep_args=False):
     """Wrap ``run_mod.<name>`` (a registration entry ``init`` calls) so that
     its seconds, its launches of each kernel (one pull and one pull_grad per
-    NMI evaluation), its host syncs, its levels' figures (the entry's
-    ``stats``) and its result land in ``record``, with copies of its
-    arguments when ``keep_args``. Returns the original, to be put back."""
+    NMI evaluation), its host syncs, its levels' figures (:func:`_levels`)
+    and its result land in ``record``, with copies of its arguments when
+    ``keep_args``. Returns the original, to be put back."""
     fn = getattr(run_mod, name)
 
     def timed(*args, **kw):
@@ -1080,19 +1081,33 @@ def _timed(name, record, keep_args=False):
             record["args"] = ([(d.clone(), np.array(m)) for d, m in args[0]],
                               *args[1:])
             record["kw"] = dict(kw)
-        levels = []
         n0 = _counts()
+        since = trace.serial()
         s0, c0 = to_host.syncs, time.perf_counter()
-        out = fn(*args, stats=levels, **kw)
+        out = fn(*args, **kw)
         torch.cuda.synchronize()
         n1 = _counts()
         record.update(s=time.perf_counter() - c0, syncs=to_host.syncs - s0,
                       launches={k: n1[k] - n0[k] for k in n1},
-                      levels=levels, out=out)
+                      levels=_levels(since), out=out)
         return out
 
     setattr(run_mod, name, timed)
     return fn
+
+
+def _levels(since):
+    """The figures of the registration levels that ran since ``since``
+    (``utils.trace.serial``): each ``registration.level`` span's counts,
+    with its seconds ``s``, its warm-up + capture ``setup_s`` and its
+    replay + read ``run_s`` (its children's)."""
+    spans = trace.spans(since=since)
+    out = []
+    for lv in (s for s in spans if s.name == "registration.level"):
+        kids = {s.name: s.s for s in spans if s.parent == lv.serial}
+        out.append(dict(lv.attrs, s=lv.s, run_s=kids["registration.level.run"],
+                        setup_s=kids.get("registration.level.capture", 0.0)))
+    return out
 
 
 def _print_levels(tag, levels):
@@ -1246,12 +1261,12 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
 
     # 5c: the same coreg uncaptured, every decision read on the host
     torch.cuda.synchronize()
-    syncs0, t0 = to_host.syncs, time.perf_counter()
-    levels_u = []
+    syncs0, t0, since = to_host.syncs, time.perf_counter(), trace.serial()
     mat_u = run_mod.affine_align(*coreg["args"], capture=False,
-                                 stats=levels_u, **coreg["kw"])
+                                 **coreg["kw"])
     torch.cuda.synchronize()
     t_u, syncs_u = time.perf_counter() - t0, to_host.syncs - syncs0
+    levels_u = _levels(since)
     _print_levels("coreg-uncaptured", levels_u)
     same = np.array_equal(np.asarray(coreg["out"]), np.asarray(mat_u))
     print(f"[coreg] captured vs uncaptured, from the same inputs: mat_a "

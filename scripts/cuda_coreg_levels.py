@@ -15,8 +15,10 @@ frame and displaced as in phase 6. Every call of the tree's
 ``pipeline.registration._opt_level`` (one per level and mover in a tree
 that runs the movers one after another, one per level where they run
 together) is timed between two synchronisations, with its pull_grad
-launches (one per NMI evaluation), its host syncs and, where it returns
-them, the level's own figures; the calls of one level are summed. ``--profile`` runs both again with ``torch.profiler`` around
+launches (one per NMI evaluation), its host syncs and, where the tree
+keeps them, the level's own figures (its ``registration.level`` span in
+``unires_torch.utils.trace``, or in an older tree ``_opt_level``'s second
+return value); the calls of one level are summed. ``--profile`` runs both again with ``torch.profiler`` around
 each call and prints the device's busy time (the union of its events'
 intervals) against that call's unprofiled wall time.
 """
@@ -68,6 +70,10 @@ def main():
     from unires_torch.ops.resample import pull_grad
     from unires_torch.pipeline import registration as reg
     from unires_torch.utils.host import to_host
+    try:
+        from unires_torch.utils import trace
+    except ImportError:  # a tree without the recorder
+        trace = None
 
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the timing needs a GPU")
@@ -82,6 +88,7 @@ def main():
 
     def timed(fd, *a, **kw):
         torch.cuda.synchronize()
+        since = trace.serial() if trace is not None else None
         n0, s0, t0 = pull_grad.launches, to_host.syncs, time.perf_counter()
         prof = None
         if mode["profile"]:
@@ -97,8 +104,20 @@ def main():
                           evals=pull_grad.launches - n0,
                           syncs=to_host.syncs - s0,
                           busy=_busy_ms(prof) if prof is not None else None,
-                          stats=out[1] if isinstance(out, tuple) else None))
+                          stats=_figures(out, since)))
         return out
+
+    def _figures(out, since):
+        """The level's own figures, with its warm-up + capture seconds."""
+        if isinstance(out, tuple):
+            return out[1]
+        if since is None:
+            return None
+        spans = trace.spans(since=since)
+        lv = next(s for s in spans if s.name == "registration.level")
+        cap = [s.s for s in spans if s.parent == lv.serial
+               and s.name == "registration.level.capture"]
+        return dict(lv.attrs, setup_s=sum(cap))
 
     reg._opt_level = timed
 

@@ -228,9 +228,9 @@ def test_coarse_coreg_level_matches_jax():
     wc = treg._fix_centre(x0.shape, m0)
     qj, _ = jreg._opt_level(fd, fm, md, mm, np.zeros(6), wc, "SE", 64, 150,
                             None)
-    qt, _ = treg._opt_level(torch.tensor(np.asarray(fd)), fm,
-                            [(torch.tensor(np.asarray(md)), mm)],
-                            np.zeros((1, 6)), wc)
+    qt = treg._opt_level(torch.tensor(np.asarray(fd)), fm,
+                         [(torch.tensor(np.asarray(md)), mm)],
+                         np.zeros((1, 6)), wc)
     qj = np.asarray(qj, np.float64)
     assert np.abs(qj[:3]).max() > 0.5  # the level moved the mover
     np.testing.assert_allclose(qt[0, :3], qj[:3], atol=0.05)

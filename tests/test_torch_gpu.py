@@ -747,14 +747,16 @@ def test_captured_coreg_matches_uncaptured(cuda):
     (its capture) and reads it once per level, the uncaptured at every
     turn."""
     from unires_torch.pipeline import registration as treg
+    from unires_torch.utils import trace
     from unires_torch.utils.host import to_host
 
     imgs = _coreg_inputs()
     out = {}
     for captured in (True, False):
-        s0, levels = to_host.syncs, []
+        s0, since = to_host.syncs, trace.serial()
         mat_a = treg.affine_align(imgs, levels=(8.0, 4.0), samp=2,
-                                  capture=captured, stats=levels)
+                                  capture=captured)
+        levels = [s.attrs for s in trace.spans("registration.level", since)]
         out[captured] = (mat_a, to_host.syncs - s0, levels)
     (ma, sa, la), (mb, sb, lb) = out[True], out[False]
     np.testing.assert_array_equal(ma, mb)

@@ -36,6 +36,7 @@ from unires_torch.geometry import (affine_basis, affine_diag,
 from unires_torch.ops import lie as tlie
 from unires_torch.pipeline import registration as treg
 from unires_torch.utils import graph as ugraph
+from unires_torch.utils import trace
 from unires_torch.utils.host import to_host
 from unires_tpu.ops import lie as jlie
 from unires_tpu.pipeline import registration as jreg
@@ -115,33 +116,42 @@ def test_batched_movers_equal_each_mover_alone(blobs):
 @pytest.mark.parametrize("entry,group", [("affine_align", "SE"),
                                          ("register_pair", "CSO")])
 def test_registration_reports_each_level(blobs, entry, group):
-    """A registration's ``stats`` list receives one record per level, in
-    order, and leaves the result as it is without it."""
+    """A registration leaves one ``registration.level`` span per level, in
+    order, with the level's figures, after one ``registration.pyramid``;
+    a second run gives the same result."""
     gt, mov = blobs
     fix, mv = torch.from_numpy(gt), torch.from_numpy(mov)
     C = treg.q_to_world(Q_TRUE[group], group, treg._fix_centre(DIM, MAT))
 
-    def run(stats=None):
+    def run():
         if entry == "affine_align":
             return treg.affine_align([(fix, MAT), (mv, C @ MAT)],
-                                     levels=(16.0,), samp=8, stats=stats)
+                                     levels=(16.0,), samp=8)
         return treg._register_pair(fix, MAT, mv, C @ MAT,
                                    np.zeros(len(Q_TRUE[group])), (16.0, 8.0),
-                                   7.0, maxiter=20, group=group,
-                                   stats=stats)[0]
+                                   7.0, maxiter=20, group=group)[0]
 
-    stats = []
-    out = run(stats)
+    since = trace.serial()
+    out = run()
     np.testing.assert_array_equal(out, run())
+    spans = trace.spans(since=since)
+    pyramids = [s for s in spans if s.name == "registration.pyramid"]
+    assert len(pyramids) == 2 and pyramids[0].attrs["mm"] == (16.0, 8.0)
+    levels = [s for s in spans if s.name == "registration.level"
+              and s.serial < pyramids[1].serial]
+    assert [lv.serial > pyramids[0].serial for lv in levels] == [True] * 2
+    stats = [lv.attrs for lv in levels]
     assert [lv["mm"] for lv in stats] == [16.0, 8.0]
-    for lv in stats:
+    for span, lv in zip(levels, stats):
         assert lv["group"] == group and lv["movers"] == 1
         assert not lv["captured"] and lv["nodes"] is None
         assert lv["turns"] == max(lv["evals"]) - 1 > 0
         # per turn the loop's and the mover's condition; then the loop's
         # last (false) condition and the level's read
         assert lv["syncs"] == 2 * lv["turns"] + 2
-        assert lv["s"] >= lv["run_s"] > 0
+        runs = [s for s in spans if s.parent == span.serial]
+        assert [s.name for s in runs] == ["registration.level.run"]
+        assert span.s >= runs[0].s > 0
 
 
 def _descend(vg, q0, iters: int = 150):

@@ -33,6 +33,8 @@ from ..geometry import fov_centre, rigid_from_q
 from ..pipeline.fit import _gather_subdats, _sync_state, chunk_len, get_sched
 from ..solvers.fitloop import (init_state, make_batch_chunk, stack_states,
                                subject_state)
+from ..utils import trace
+from ..utils.host import to_host
 
 __all__ = ["assign_devices", "check_homogeneous", "fit_batch"]
 
@@ -115,21 +117,26 @@ class BatchRun:
     state back into its structs (``pipeline.fit._sync_state``, as the JAX
     package's l.250-264) and returns what ``pipeline.fit.fit`` returns for
     each. ``capture`` is the chunk's (tests and ``chip_smoke.py`` pass
-    False to run the card uncaptured)."""
+    False to run the card uncaptured). Spans (``utils.trace``), as
+    ``pipeline.fit.FitRun``'s: ``fit.setup``, ``fit.chunk``
+    (``fit.chunk.launch``, ``fit.chunk.read``), ``fit.finish``."""
 
     def __init__(self, xs, ys, sett, capture=None):
         self.xs, self.ys, self.sett = xs, ys, sett
         self.B = len(xs)
-        self.chunk = make_batch_chunk(xs, ys, sett, chunk_len(sett), capture)
-        self.state = stack_states([init_state(xb, yb, sett)
-                                   for xb, yb in zip(xs, ys)])
-        self.xdats = [[torch.stack([xb[c][n].dat for xb in xs])
-                       for n in range(len(xs[0][c]))]
-                      for c in range(len(xs[0]))]
-        subdats = [_gather_subdats(xb, subs)
-                   for xb, subs in zip(xs, self.chunk.subs_of)]
-        self.subdats = [None if d[0] is None else torch.stack(d)
-                        for d in zip(*subdats)]
+        self.ids = trace.subjects(ys) or None  # of its spans
+        with trace.span("fit.setup", ids=self.ids):
+            self.chunk = make_batch_chunk(xs, ys, sett, chunk_len(sett),
+                                          capture)
+            self.state = stack_states([init_state(xb, yb, sett)
+                                       for xb, yb in zip(xs, ys)])
+            self.xdats = [[torch.stack([xb[c][n].dat for xb in xs])
+                           for n in range(len(xs[0][c]))]
+                          for c in range(len(xs[0]))]
+            subdats = [_gather_subdats(xb, subs)
+                       for xb, subs in zip(xs, self.chunk.subs_of)]
+            self.subdats = [None if d[0] is None else torch.stack(d)
+                            for d in zip(*subdats)]
         self.traces = [[] for _ in xs]
 
     @property
@@ -145,31 +152,40 @@ class BatchRun:
     def step(self, n: int = None) -> None:
         """One chunk of every subject (the finished ones frozen), read
         once: ``n`` iterations, by default and at most ``chunk_iters``, at
-        most what ``max_iter`` leaves the least advanced live subject."""
-        n_iter = self.state.host["n_iter"][self.on]
-        n = self.chunk.K if n is None else min(int(n), self.chunk.K)
-        n = min(n, self.sett.max_iter - int(n_iter.min()))
-        self.chunk(self.state, self.xdats, self.subdats, n)
-        out = self.chunk.read(self.state, n)
-        for b in range(self.B):
-            self.traces[b].extend(out["objs"][b, k]
-                                  for k in np.flatnonzero(out["valid"][b]))
+        most what ``max_iter`` leaves the least advanced live subject. A
+        ``fit.chunk`` span with the iterations asked (``asked``), the
+        subject-iterations run (``iters``) and each subject's ``n_iter``
+        after the read."""
+        with trace.span("fit.chunk", ids=self.ids) as span:
+            n_iter = self.state.host["n_iter"][self.on]
+            n = self.chunk.K if n is None else min(int(n), self.chunk.K)
+            n = min(n, self.sett.max_iter - int(n_iter.min()))
+            with trace.span("fit.chunk.launch"):
+                self.chunk(self.state, self.xdats, self.subdats, n)
+            with trace.span("fit.chunk.read"):
+                out = self.chunk.read(self.state, n)
+            for b in range(self.B):
+                self.traces[b].extend(out["objs"][b, k]
+                                      for k in np.flatnonzero(out["valid"][b]))
+            span.attrs.update(asked=n, iters=int(out["valid"].sum()),
+                              n_iter=[len(t) for t in self.traces])
 
     def finish(self):
         out = []
         basis = self.sett.rigid_basis
-        for b, (x, y) in enumerate(zip(self.xs, self.ys)):
-            st = subject_state(self.state, b)
-            _sync_state(x, y, self.sett, st)
-            N = sum(len(xc) for xc in x)
-            R = np.stack([np.eye(4)] * N)
-            centre = fov_centre(y[0].mat, y[0].dim)
-            for i, o in enumerate(o for xc in x for o in xc):
-                if o.rigid_q is not None and basis is not None:
-                    R[i] = rigid_from_q(o.rigid_q, basis, centre)
-            trace = (np.asarray(self.traces[b]) if self.traces[b]
-                     else np.zeros((0, 3)))
-            out.append((y, R, st.jtv, trace, len(self.traces[b])))
+        with trace.span("fit.finish", ids=self.ids):
+            for b, (x, y) in enumerate(zip(self.xs, self.ys)):
+                st = subject_state(self.state, b)
+                _sync_state(x, y, self.sett, st)
+                N = sum(len(xc) for xc in x)
+                R = np.stack([np.eye(4)] * N)
+                centre = fov_centre(y[0].mat, y[0].dim)
+                for i, o in enumerate(o for xc in x for o in xc):
+                    if o.rigid_q is not None and basis is not None:
+                        R[i] = rigid_from_q(o.rigid_q, basis, centre)
+                obj = (np.asarray(self.traces[b]) if self.traces[b]
+                       else np.zeros((0, 3)))
+                out.append((y, R, st.jtv, obj, len(self.traces[b])))
         return out
 
 
@@ -188,10 +204,25 @@ def fit_batch(xs, ys, sett, devices=None, capture=None):
     dashboards and ``clean_fov`` are single-subject features: batch mode
     does not read those settings. ``utils.host.to_host.syncs`` counts the
     reads of all devices together: one per chunk per device.
+
+    The call is a ``fit`` span (``utils.trace``) with the subjects' ids,
+    ``B``, each subject's ``n_iter`` and the host reads (``syncs``); each
+    device's spans nest in it, on that device's thread.
     """
     B = len(xs)
     if B == 0:
         return []
+    with trace.span("fit", ids=trace.subjects(ys) or None, B=B) as span:
+        syncs0 = to_host.syncs
+        results = _fit_batch(xs, ys, sett, devices, capture, span)
+        span.attrs.update(n_iter=[r[-1] for r in results],
+                          syncs=to_host.syncs - syncs0)
+    return results
+
+
+def _fit_batch(xs, ys, sett, devices, capture, span):
+    """:func:`fit_batch` inside its span ``span``."""
+    B = len(xs)
     check_homogeneous(xs, ys, sett)
     sett = get_sched(sum(len(xc) for xc in xs[0]), sett)
     reg0 = float(np.atleast_1d(sett.reg_scl)[0])
@@ -240,7 +271,8 @@ def fit_batch(xs, ys, sett, devices=None, capture=None):
 
         def worker(run):
             try:
-                drive(run)
+                with trace.within(span):
+                    drive(run)
             except BaseException as e:  # re-raised in the caller below
                 errors.append(e)
 

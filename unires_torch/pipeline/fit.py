@@ -30,6 +30,8 @@ from ..geometry import fov_centre, rigid_from_q
 from ..ops.resample import affine_to_M, pull
 from ..solvers.admm import step_size
 from ..solvers.fitloop import FitState, init_state, make_fit_chunk
+from ..utils import trace
+from ..utils.host import to_host
 from ..utils.log import info
 from ..utils.plots import plot_convergence, require_matplotlib, show_slices
 from .checkpoint import load_checkpoint, restore_into, save_checkpoint
@@ -134,7 +136,9 @@ class FitRun:
     ``fit`` drives one of these to the end. It owns its chunk
     (``solvers.fitloop.make_fit_chunk``: on the card, a captured graph
     bound to this subject's state). ``capture`` is the chunk's (tests and
-    ``chip_smoke.py`` pass False to run the card uncaptured).
+    ``chip_smoke.py`` pass False to run the card uncaptured). Spans
+    (``utils.trace``): ``fit.setup`` (the construction), per step
+    ``fit.chunk`` (``fit.chunk.launch``, ``fit.chunk.read``), ``fit.finish``.
     """
 
     def __init__(self, x: XData, y: YData, sett, state: FitState = None,
@@ -151,11 +155,14 @@ class FitRun:
             for yc in y:
                 yc.lam = float(reg[0]) * yc.lam0
         if sett.max_iter > 0:
-            info(sett, "step-size", step_size(x, y, sett))
-            self.state = state if state is not None else init_state(x, y, sett)
-            self.chunk = make_fit_chunk(x, y, sett, chunk_len(sett), capture)
-            self.xdats = [[o.dat for o in xc] for xc in x]
-            self.subdats = _gather_subdats(x, self.chunk.subs)
+            with trace.span("fit.setup"):
+                info(sett, "step-size", step_size(x, y, sett))
+                self.state = (state if state is not None
+                              else init_state(x, y, sett))
+                self.chunk = make_fit_chunk(x, y, sett, chunk_len(sett),
+                                            capture)
+                self.xdats = [[o.dat for o in xc] for xc in x]
+                self.subdats = _gather_subdats(x, self.chunk.subs)
 
     @property
     def n_iter(self) -> int:
@@ -187,9 +194,17 @@ class FitRun:
         return rows
 
     def step(self, n: int = None):
-        """One chunk, launched and read; returns its rows (:meth:`collect`)."""
-        self.launch(n)
-        return self.collect()
+        """One chunk, launched and read; returns its rows (:meth:`collect`).
+        A ``fit.chunk`` span with the iterations asked (``asked``), those
+        run (``iters``) and ``n_iter`` after the read."""
+        with trace.span("fit.chunk") as span:
+            with trace.span("fit.chunk.launch"):
+                self.launch(n)
+            span.attrs["asked"] = self.pending
+            with trace.span("fit.chunk.read"):
+                rows = self.collect()
+            span.attrs.update(iters=len(rows), n_iter=[len(self.obj_trace)])
+        return rows
 
     def sync(self) -> None:
         _sync_state(self.x, self.y, self.sett, self.state)
@@ -198,22 +213,23 @@ class FitRun:
         """(y, R, jtv, obj_trace, n_iter) with the structs brought up to
         date; ``clean`` applies ``Settings.clean_fov``."""
         x, y, sett = self.x, self.y, self.sett
-        jtv = None
-        if self.state is not None:
-            self.sync()
-            jtv = self.state.jtv
-        if clean and sett.clean_fov:
-            clean_fov(x, y)
-        # rigid matrices (reference run.py:195-200): centre-conjugated world
-        # transforms of the fitted pose parameters
-        R = np.stack([np.eye(4)] * self.N)
-        centre = fov_centre(y[0].mat, y[0].dim)
-        for i, o in enumerate(o for xc in x for o in xc):
-            if o.rigid_q is not None and sett.rigid_basis is not None:
-                R[i] = rigid_from_q(o.rigid_q, sett.rigid_basis, centre)
-        trace = (np.asarray(self.obj_trace) if self.obj_trace
-                 else np.zeros((0, 3)))
-        return y, R, jtv, trace, len(self.obj_trace)
+        with trace.span("fit.finish"):
+            jtv = None
+            if self.state is not None:
+                self.sync()
+                jtv = self.state.jtv
+            if clean and sett.clean_fov:
+                clean_fov(x, y)
+            # rigid matrices (reference run.py:195-200): centre-conjugated
+            # world transforms of the fitted pose parameters
+            R = np.stack([np.eye(4)] * self.N)
+            centre = fov_centre(y[0].mat, y[0].dim)
+            for i, o in enumerate(o for xc in x for o in xc):
+                if o.rigid_q is not None and sett.rigid_basis is not None:
+                    R[i] = rigid_from_q(o.rigid_q, sett.rigid_basis, centre)
+            obj = (np.asarray(self.obj_trace) if self.obj_trace
+                   else np.zeros((0, 3)))
+        return y, R, jtv, obj, len(self.obj_trace)
 
 
 def _resume_state(x, y, sett):
@@ -308,7 +324,19 @@ def fit(x: XData, y: YData, sett, state: FitState = None, capture=None):
     the fit continues from it, and the returned trace and ``n_iter`` count
     the iterations before the checkpoint too; without the file it starts
     fresh.
+
+    The call is a ``fit`` span (``utils.trace``) with the subject's
+    ``n_iter`` and its host reads (``syncs``, the capture's wait included).
     """
+    with trace.span("fit", ids=trace.subjects([y]) or None, B=1) as span:
+        syncs0 = to_host.syncs
+        out = _fit(x, y, sett, state, capture)
+        span.attrs.update(n_iter=[out[-1]], syncs=to_host.syncs - syncs0)
+    return out
+
+
+def _fit(x, y, sett, state, capture):
+    """:func:`fit` inside its span."""
     prior = None
     if (state is None and sett.max_iter > 0 and sett.resume
             and sett.checkpoint_path

@@ -39,7 +39,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
-import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,6 +50,7 @@ from ..geometry import (affine_basis, affine_translation, expm, rigid_log,
 from ..ops.lie import compose_maps, group_dexpm, se3_dexpm
 from ..ops.resample import affine_to_M, pull, pull_grad
 from ..solvers.rigid import _centred_coords, _moments
+from ..utils import trace
 from ..utils.graph import capture as capture_graph
 from ..utils.graph import cond, forced, while_loop
 from ..utils.host import to_host
@@ -364,10 +364,17 @@ class NMILevelOpt:
     raises. ``capture=False`` runs the same code uncaptured, every decision
     read on the host (on the CPU always; on the card for the tests and
     ``chip_smoke.py``).
+
+    Each call is a ``registration.level`` span (``utils.trace``) whose
+    counts are the level's figures, ``mm`` and ``group`` as given here;
+    :attr:`stats` is that dict. Its children: ``registration.level.capture``
+    (the warm-up and the capture, on the card) and
+    ``registration.level.run`` (the run or the replay, and the read).
     """
 
     def __init__(self, levels, iters: int = 150,
-                 capture: Optional[bool] = None):
+                 capture: Optional[bool] = None, group: str = "SE",
+                 mm: Optional[float] = None):
         self.levels = list(levels)
         self.dev = dev = self.levels[0].mov.device
         if capture is None:
@@ -380,6 +387,7 @@ class NMILevelOpt:
         self.scale = torch.as_tensor(_qscale(K), dtype=torch.float64,
                                      device=dev)
         self.st = _LevelState.zeros(len(self.levels), K, dev)
+        self.group, self.mm = group, mm
         self.stats = {}
 
     def _eval(self, i: int, q, loss_out, g_out) -> None:
@@ -429,64 +437,70 @@ class NMILevelOpt:
     def __call__(self, q0):
         """Run the level from q0 (n, K); returns (q (n, K), loss (n,),
         evaluations per mover (n,)) as host arrays: the level's one read.
-        ``stats`` holds its figures."""
+        ``stats`` holds its figures: ``mm``, ``group``, ``grid``,
+        ``movers``, ``evals`` (per mover), ``turns`` (of the WHILE loop),
+        ``captured``, ``nodes`` (the graph's, None uncaptured) and
+        ``syncs`` (host syncs, the capture's wait included)."""
         st = self.st
-        syncs0, t0 = to_host.syncs, time.perf_counter()
-        st.q0.copy_(torch.as_tensor(np.asarray(q0, np.float64)))
-        nodes = None
-        if self.capture:
-            scratch = st.clone()
-            with torch.cuda.device(self.dev), forced():
-                self.run(scratch)
-            del scratch
-            with torch.cuda.device(self.dev):
-                graph = capture_graph(lambda: self.run(st))
-            nodes = graph.nodes
-            t1 = time.perf_counter()
-            graph.replay()
-        else:
-            t1 = time.perf_counter()
-            self.run(st)
         n, K = st.q.shape
-        v = to_host(torch.cat([st.q.reshape(-1), st.loss,
-                               st.it.to(torch.float64),
-                               st.turns.to(torch.float64).reshape(1)]))
-        t2 = time.perf_counter()
-        q = v[:n * K].reshape(n, K)
-        loss = v[n * K:n * K + n]
-        evals = v[n * K + n:n * K + 2 * n].astype(np.int64) + 1
-        self.stats = dict(grid=self.levels[0].fix_dim, movers=n,
-                          evals=evals.tolist(), turns=int(v[-1]),
-                          captured=self.capture, nodes=nodes,
-                          setup_s=t1 - t0, run_s=t2 - t1, s=t2 - t0,
-                          syncs=to_host.syncs - syncs0)
+        with trace.span("registration.level", mm=self.mm, group=self.group,
+                        grid=self.levels[0].fix_dim, movers=n,
+                        captured=self.capture) as span:
+            self.stats = figures = span.attrs
+            syncs0 = to_host.syncs
+            st.q0.copy_(torch.as_tensor(np.asarray(q0, np.float64)))
+            graph = None
+            if self.capture:
+                with trace.span("registration.level.capture"):
+                    scratch = st.clone()
+                    with torch.cuda.device(self.dev), forced():
+                        self.run(scratch)
+                    del scratch
+                    with torch.cuda.device(self.dev):
+                        graph = capture_graph(lambda: self.run(st))
+            with trace.span("registration.level.run"):
+                if graph is not None:
+                    graph.replay()
+                else:
+                    self.run(st)
+                v = to_host(torch.cat([st.q.reshape(-1), st.loss,
+                                       st.it.to(torch.float64),
+                                       st.turns.to(torch.float64).reshape(1)]))
+            q = v[:n * K].reshape(n, K)
+            loss = v[n * K:n * K + n]
+            evals = v[n * K + n:n * K + 2 * n].astype(np.int64) + 1
+            figures.update(evals=evals.tolist(), turns=int(v[-1]),
+                           nodes=None if graph is None else graph.nodes,
+                           syncs=to_host.syncs - syncs0)
         return q, loss, evals
 
 
 def make_nmi_level(fix, movers, post4, group: str = "SE", iters: int = 150,
-                   capture: Optional[bool] = None) -> NMILevelOpt:
+                   capture: Optional[bool] = None,
+                   mm: Optional[float] = None) -> NMILevelOpt:
     """The level optimiser of ``movers`` [(volume, pre4), ...] against
     ``fix`` on its grid: :class:`NMILevelOpt` over one :class:`_NMILevel`
-    per mover, sharing the fixed image's chunks."""
+    per mover, sharing the fixed image's chunks; ``mm``: the level's voxel
+    size, for its span."""
     levels = []
     for mov, pre4 in movers:
         levels.append(_NMILevel(fix, mov, pre4, post4, group,
                                 like=levels[0] if levels else None))
-    return NMILevelOpt(levels, iters, capture)
+    return NMILevelOpt(levels, iters, capture, group, mm)
 
 
 def _opt_level(fd, fm, movers, qs, wc, group: str = "SE", iters: int = 150,
-               capture: Optional[bool] = None):
-    """One level's optimisation of all ``movers`` [(md, mm), ...] against
-    (fd, fm) from their parameters ``qs`` (n, K); returns the new qs and
-    the level's figures (:attr:`NMILevelOpt.stats`)."""
+               capture: Optional[bool] = None, mm: Optional[float] = None):
+    """One level's optimisation of all ``movers`` [(md, mat), ...] against
+    (fd, fm) from their parameters ``qs`` (n, K); returns the new qs. Its
+    figures are its ``registration.level`` span's (``utils.trace``)."""
     post4 = affine_translation(-wc) @ np.asarray(fm, np.float64)
     opt = make_nmi_level(
-        fd, [(md, np.linalg.inv(np.asarray(mm, np.float64))
-              @ affine_translation(wc)) for md, mm in movers],
-        post4, group, iters, capture)
+        fd, [(md, np.linalg.inv(np.asarray(mat, np.float64))
+              @ affine_translation(wc)) for md, mat in movers],
+        post4, group, iters, capture, mm)
     q, _, _ = opt(qs)
-    return q, opt.stats
+    return q
 
 
 def _as_volume(dat, device=None) -> torch.Tensor:
@@ -497,23 +511,20 @@ def _as_volume(dat, device=None) -> torch.Tensor:
 
 
 def _register_pair(fix_dat, fix_mat, mov_dat, mov_mat, q0, levels, fwhm,
-                   maxiter: int = 150, group: str = "SE",
-                   stats: Optional[list] = None):
+                   maxiter: int = 150, group: str = "SE"):
     """Multi-resolution NMI registration of one pair. Returns (q, wc):
     the parameters of the centred exponential and its centre; the world
-    transform is :func:`q_to_world` (q, group, wc). ``stats``, when given,
-    receives each level's figures, with its voxel size ``mm`` and
-    ``group``."""
+    transform is :func:`q_to_world` (q, group, wc). Spans: one
+    ``registration.pyramid``, then a ``registration.level`` per level."""
     wc = _fix_centre(fix_dat.shape, fix_mat)
     q = np.asarray(q0, np.float64)[None]
     fwhms = ([float(fwhm)] * len(levels) if np.isscalar(fwhm)
              else [float(f) for f in fwhm])
-    fix_pyr = _iso_pyramid(fix_dat, fix_mat, levels, fwhms)
-    mov_pyr = _iso_pyramid(mov_dat, mov_mat, levels, fwhms)
+    with trace.span("registration.pyramid", mm=tuple(levels)):
+        fix_pyr = _iso_pyramid(fix_dat, fix_mat, levels, fwhms)
+        mov_pyr = _iso_pyramid(mov_dat, mov_mat, levels, fwhms)
     for lv, (fd, fm), mov in zip(levels, fix_pyr, mov_pyr):
-        q, lv_stats = _opt_level(fd, fm, [mov], q, wc, group, maxiter)
-        if stats is not None:
-            stats.append(dict(lv_stats, mm=lv, group=group))
+        q = _opt_level(fd, fm, [mov], q, wc, group, maxiter, mm=lv)
     return q[0], wc
 
 
@@ -521,8 +532,8 @@ def affine_align(imgs: Sequence[Tuple[torch.Tensor, np.ndarray]], fix: int = 0,
                  cost_fun: str = "nmi", group: str = "SE", samp=1,
                  fwhm: float = 7.0, mean_space: bool = False,
                  levels: Sequence[float] = (8.0, 4.0, 2.0),
-                 gauge: str = "fix", capture: Optional[bool] = None,
-                 stats: Optional[list] = None) -> np.ndarray:
+                 gauge: str = "fix", capture: Optional[bool] = None
+                 ) -> np.ndarray:
     """Pairwise rigid alignment of all images to imgs[fix].
 
     Returns mat_a (N, 4, 4): world-space transforms; ``mat <- solve(mat_a[i],
@@ -532,9 +543,10 @@ def affine_align(imgs: Sequence[Tuple[torch.Tensor, np.ndarray]], fix: int = 0,
     expm(-mean(log mat_a)), so the common frame is the Lie-mean of the
     input frames. The schedule always finishes with a ``samp``-mm level.
     All movers of a level run in one :class:`NMILevelOpt` (on the card one
-    captured graph per level; ``capture=False`` runs it uncaptured), and
-    ``stats``, when given, receives each level's figures, with its voxel
-    size ``mm`` and ``group``. ``mean_space`` is accepted for the reference's signature and unused.
+    captured graph per level; ``capture=False`` runs it uncaptured), each
+    level a ``registration.level`` span after one ``registration.pyramid``
+    (``utils.trace``). ``mean_space`` is accepted for the reference's
+    signature and unused.
     """
     if cost_fun != "nmi":
         raise NotImplementedError(f"cost_fun={cost_fun!r} (only 'nmi')")
@@ -552,18 +564,17 @@ def affine_align(imgs: Sequence[Tuple[torch.Tensor, np.ndarray]], fix: int = 0,
     dats = [_as_volume(d) for d, _ in imgs]
     fix_mat = imgs[fix][1]
     wc = _fix_centre(dats[fix].shape, fix_mat)
-    fix_pyr = _iso_pyramid(dats[fix], fix_mat, levels, fwhms)
     movers = [i for i in range(N) if i != fix]
-    box = _world_box([(imgs[i][1], dats[i].shape) for i in movers])
-    mov_pyrs = [_iso_pyramid(dats[i], imgs[i][1], levels, fwhms, box=box)
-                for i in movers]
+    with trace.span("registration.pyramid", mm=levels):
+        fix_pyr = _iso_pyramid(dats[fix], fix_mat, levels, fwhms)
+        box = _world_box([(imgs[i][1], dats[i].shape) for i in movers])
+        mov_pyrs = [_iso_pyramid(dats[i], imgs[i][1], levels, fwhms,
+                                 box=box) for i in movers]
     qs = np.zeros((len(movers), 6))
     for li, lv in enumerate(levels):
         fd, fm = fix_pyr[li]
-        qs, lv_stats = _opt_level(fd, fm, [p[li] for p in mov_pyrs], qs, wc,
-                                  "SE", 150, capture)
-        if stats is not None:
-            stats.append(dict(lv_stats, mm=lv, group="SE"))
+        qs = _opt_level(fd, fm, [p[li] for p in mov_pyrs], qs, wc, "SE", 150,
+                        capture, mm=lv)
     for k, i in enumerate(movers):
         mat_a[i] = q_to_world(qs[k], "SE", wc)
     if gauge == "mean":
@@ -583,8 +594,7 @@ _ATLAS_PATH_ENV = "UNIRES_ATLAS"
 
 
 def atlas_align(img: Tuple[torch.Tensor, np.ndarray], rigid: bool = True,
-                atlas_path: Optional[str] = None,
-                stats: Optional[list] = None) -> np.ndarray:
+                atlas_path: Optional[str] = None) -> np.ndarray:
     """Align one image to a T1 atlas (reference _core.py:340-353); returns
     the world transform mat_a, applied as ``mat <- solve(mat_a, mat)``.
 
@@ -595,7 +605,7 @@ def atlas_align(img: Tuple[torch.Tensor, np.ndarray], rigid: bool = True,
     CSO = rigid + isotropic scale (the reference's ``atlas_rigid=False``).
     Every NMI evaluation is one pull and one pull_grad of the image's level;
     each level is one :class:`NMILevelOpt`, on the card one captured
-    graph; ``stats`` as in :func:`affine_align`.
+    graph, and one ``registration.level`` span (``utils.trace``).
     """
     dat, mat = img
     dat = _as_volume(dat)
@@ -615,7 +625,7 @@ def atlas_align(img: Tuple[torch.Tensor, np.ndarray], rigid: bool = True,
     fwhms = [7.0] * (len(levels) - 2) + [4.0, 4.0]
     q, wc = _register_pair(_as_volume(adat, dat.device), amat, dat, mat,
                            np.zeros(K), levels=tuple(levels),
-                           fwhm=tuple(fwhms), group=group, stats=stats)
+                           fwhm=tuple(fwhms), group=group)
     return q_to_world(q, group, wc)
 
 

@@ -17,6 +17,7 @@ import torch
 from ..geometry import affine_basis, voxel_size
 from ..ops.resample import affine_to_M, pull
 from ..settings import Settings
+from ..utils import trace
 from ..utils.log import info
 from .fit import fit as _fit
 from .format_y import (format_y, init_y_dat, init_y_label, proj_info_add,
@@ -64,7 +65,9 @@ def _read_image(item, device, is_ct: bool = False) -> Obs:
         dat, mat = item
         dat = np.squeeze(np.asarray(dat, np.float32))
         o.mat = np.asarray(mat, np.float64)
-    dat = np.array(dat, np.float32)  # copy: inputs may be read-only buffers
+    # a C-ordered copy: inputs may be read-only buffers, or Fortran-ordered
+    # as a NIfTI loader can hand them, and the kernels take C order
+    dat = np.array(dat, np.float32, order="C")
     dat[~np.isfinite(dat)] = 0.0
     if dat.ndim != 3:
         raise ValueError(
@@ -128,9 +131,10 @@ def init_reg(x: XData, sett):
     if sett.do_coreg and N > 1:
         t0 = info(sett, "init-reg-begin", "co", N)
         imgs = [(o.dat, o.mat) for xc in x for o in xc]
-        mat_a = affine_align(imgs, fix=sett.fix,
-                             gauge=getattr(sett, "coreg_gauge", "mean"),
-                             **sett.coreg_params)
+        with trace.span("registration.coreg", movers=N - 1):
+            mat_a = affine_align(imgs, fix=sett.fix,
+                                 gauge=getattr(sett, "coreg_gauge", "mean"),
+                                 **sett.coreg_params)
         sett.mat_coreg = mat_a
         i = 0
         for xc in x:
@@ -141,7 +145,8 @@ def init_reg(x: XData, sett):
     if sett.do_atlas_align:
         t0 = info(sett, "init-reg-begin", "atlas", N)
         imgs = [(o.dat, o.mat) for xc in x for o in xc]
-        mat_a = atlas_align(imgs[sett.fix], rigid=sett.atlas_rigid)
+        with trace.span("registration.atlas", movers=1):
+            mat_a = atlas_align(imgs[sett.fix], rigid=sett.atlas_rigid)
         sett.mat_atlas = mat_a
         for xc in x:
             for o in xc:
@@ -200,7 +205,8 @@ def fix_affine(x: XData, sett):
 
 
 def init(data, sett: Optional[Settings] = None):
-    """Model initialiser (reference run.py:210-282)."""
+    """Model initialiser (reference run.py:210-282). The subject gets a
+    new trace id (``utils.trace``), carried on its ``y`` structs."""
     sett = sett if sett is not None else Settings()
     get_device(sett)
     info(sett, "init")
@@ -209,22 +215,38 @@ def init(data, sett: Optional[Settings] = None):
         sett.crop = True
         if sett.pow == 0:
             sett.pow = 256
-    x = read_data(data, sett)
-    if sett.max_iter > 0:
-        x = estimate_hyperpar(x, sett)
-    x = fix_affine(x, sett)
-    x = resample_inplane(x, sett)
-    x, sett = init_reg(x, sett)
-    y, sett = format_y(x, sett)
-    x = proj_info_add(x, y, sett)
-    y = init_y_dat(x, y, sett)
-    y = init_y_label(x, y, sett)
+    tid = trace.new_id()
+    with trace.span("init", ids=(tid,)):
+        with trace.span("init.read"):
+            x = read_data(data, sett)
+        if sett.max_iter > 0:
+            with trace.span("init.hyperpar"):
+                x = estimate_hyperpar(x, sett)
+        with trace.span("init.inputs"):
+            x = fix_affine(x, sett)
+            x = resample_inplane(x, sett)
+        x, sett = init_reg(x, sett)
+        with trace.span("init.grid"):
+            y, sett = format_y(x, sett)
+        with trace.span("init.reslice"):
+            x = proj_info_add(x, y, sett)
+            y = init_y_dat(x, y, sett)
+            y = init_y_label(x, y, sett)
+    for yc in y:
+        yc.trace_id = tid
     return x, y, sett
 
 
 def write_data(x: XData, y: YData, sett, jtv=None):
     """Clip to the input range and write reconstructions (reference
-    _core.py:587-670). Returns (dat_y, pth_y, label, pth_label)."""
+    _core.py:587-670). Returns (dat_y, pth_y, label, pth_label). The
+    span ``run.output`` holds the clamp and the copies to the host."""
+    with trace.span("run.output"):
+        return _write_data(x, y, sett, jtv)
+
+
+def _write_data(x: XData, y: YData, sett, jtv=None):
+    """:func:`write_data` inside its span."""
     mat = y[0].mat
     dir_out = sett.dir_out
     if dir_out is None:
@@ -289,9 +311,12 @@ def fit(x: XData, y: YData, sett):
 
 
 def preproc(data, sett: Optional[Settings] = None):
-    """One-call API (reference run.py:285-318)."""
-    x, y, sett = init(data, sett)
-    dat_y, mat_y, pth_y, _, _, _ = fit(x, y, sett)
+    """One-call API (reference run.py:285-318); the span ``run.unit``
+    holds the whole call."""
+    with trace.span("run.unit", B=1) as unit:
+        x, y, sett = init(data, sett)
+        unit.ids = (trace.subject(y),)
+        dat_y, mat_y, pth_y, _, _, _ = fit(x, y, sett)
     return dat_y, mat_y, pth_y
 
 
@@ -327,15 +352,17 @@ def preproc_batch(subjects, sett: Optional[Settings] = None):
     if not sett.shard:
         sett.shard = "batch"
     inits = []
-    for data in subjects:
-        # init mutates settings (method, schedule, rigid basis): one copy
-        # per subject. Subjects 1.. reconstruct on subject 0's output grid
-        # so the batch is geometry-homogeneous (with common_output all
-        # subjects land on the atlas grid already).
-        sb = sett.copy()
-        if inits and not sett.common_output:
-            y0 = inits[0][1]
-            sb.force_y_space = (y0[0].mat, y0[0].dim)
-        inits.append(init(data, sb))
-    res = fit_batch(*(list(t) for t in zip(*inits)))
+    with trace.span("run.unit", B=len(subjects)) as unit:
+        for data in subjects:
+            # init mutates settings (method, schedule, rigid basis): one
+            # copy per subject. Subjects 1.. reconstruct on subject 0's
+            # output grid so the batch is geometry-homogeneous (with
+            # common_output all subjects land on the atlas grid already).
+            sb = sett.copy()
+            if inits and not sett.common_output:
+                y0 = inits[0][1]
+                sb.force_y_space = (y0[0].mat, y0[0].dim)
+            inits.append(init(data, sb))
+        unit.ids = trace.subjects([y for _, y, _ in inits])
+        res = fit_batch(*(list(t) for t in zip(*inits)))
     return [(dat_y, mat_y, pth_y) for dat_y, mat_y, pth_y, _, _, _ in res]

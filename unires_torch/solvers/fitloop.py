@@ -55,6 +55,7 @@ from ..models.forward import make_obs_suite
 from ..models.proj_op import proj_info
 from ..ops.lie import compose_maps, se3_dexpm, se3_expm
 from ..ops.resample import PLAN_SIZE, push_plan
+from ..utils import trace
 from ..utils.batch import any_of, each
 from ..utils.graph import capture, cond, forced
 from ..utils.host import to_host
@@ -670,14 +671,17 @@ class FitChunk:
     def _capture(self, st, xdats, subdats):
         """Warm every branch up on a copy of the state (every kernel, every
         library handle and workspace exists before the capture starts),
-        then capture one iteration of ``st``."""
+        then capture one iteration of ``st``: a ``fit.capture`` span
+        (``utils.trace``) with the graph's ``nodes``."""
         self.graph = None
-        scratch = st.clone()
-        with torch.cuda.device(self.dev), forced():
-            self.iterate(scratch, xdats, subdats)
-        del scratch
-        with torch.cuda.device(self.dev):
-            self.graph = capture(lambda: self.iterate(st, xdats, subdats))
+        with trace.span("fit.capture") as span:
+            scratch = st.clone()
+            with torch.cuda.device(self.dev), forced():
+                self.iterate(scratch, xdats, subdats)
+            del scratch
+            with torch.cuda.device(self.dev):
+                self.graph = capture(lambda: self.iterate(st, xdats, subdats))
+            span.attrs["nodes"] = self.graph.nodes
 
     def read(self, st: FitState, n: int) -> dict:
         """The host's one read of a chunk of ``n`` iterations: objs (n, 3),
