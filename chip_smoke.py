@@ -31,7 +31,14 @@ Phases, each printing its lines:
    each at its own map (push: its own plan), in one launch, against three
    unbatched launches and against the plain version (both bitwise), with
    its device ms beside that of the three unbatched launches, its bound
-   (three volumes) and the library call with N = 3.
+   (three volumes) and the library call with N = 3. Then the
+   finite-difference stencils (``ops/finite_diff.py``: gradient, divergence
+   and the membrane D^T D, scaled as the ADMM body scales them) at the
+   fit's recon grids (190x232x189 of ``brainweb_sr3``, 192x256x192 of
+   ``brainweb_common``) and as B = 2 strided channel views at the first,
+   each bitwise equal to the plain zero-fill chain on the card, with its
+   device ms, the plain chain's, and its bound (input read once, output
+   written once at 3.35 TB/s).
 4. Small slices, each fitted on the card and on the CPU (plain versions)
    with the objective traces compared: a pre-aligned 2-channel problem, and
    a misaligned one with co-registration, unified rigid and even/odd
@@ -41,9 +48,9 @@ Phases, each printing its lines:
    slices, first pre-aligned (init + fit, no GN updates), then as
    ``bench.py`` builds it (per-channel rigid misalignment, even/odd scaling
    0.1) through ``unires_torch.init`` (NMI co-registration) + fit with
-   unified rigid and scaling. Kernel launch counters are reset just before
-   each run and read just after it (the kernels count their own launches on
-   the device, those of a graph's replays included). Prints init / coreg
+   unified rigid and scaling. Kernel launch counters (the stencils' too) are
+   reset just before each run and read just after it (the kernels count
+   their own launches on the device, those of a graph's replays included). Prints init / coreg
    seconds, s/iter, PSNR and sr_vs_trilinear (as bench.py), each channel's
    residual pose error against the simulated rigids before and after coreg
    and after the fit, the fitted scales, launches, host syncs per
@@ -132,7 +139,10 @@ phase 8's ``fit_batch``, ``launches_converged`` from phase 9,
 summed over phase 10's two spatial steps; ``fov`` the FOV = true cases of
 phase 3; ``batch_ms`` and ``unbatched_x3_ms`` phase 3's batched launch of
 three volumes and the three unbatched launches, ``batch_bound_ms`` and
-``batch_library_ms`` its bound and its library call with N = 3), the one
+``batch_library_ms`` its bound and its library call with N = 3) and the
+stencils' record (phase 3's cases by ``entry/case``, each with its entry's
+``launches`` in the misaligned run and ``launches_converged`` in phase 9,
+both required > 0), the one
 before it the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises: nothing is
 caught.
@@ -162,6 +172,7 @@ from unires_torch.geometry import (affine_basis, affine_diag,
 from unires_torch.models.forward import obs_dyn_args, proj_apply
 from unires_torch.models.proj_op import proj_info
 from unires_torch.ops import cuda_build
+from unires_torch.ops import finite_diff as fd
 from unires_torch.ops.resample import (_as_map, _fov_mask, _sample_coords,
                                        affine_to_M, pull, pull_grad,
                                        pull_grad_plain, pull_plain, push,
@@ -786,7 +797,72 @@ def phase_kernels(device="cuda"):
     _adjoint(cases, "fov_narrow", fov=FOV_NARROW)
     for name in ("pull", "push", "pull_grad"):
         rec[name].update(_measure_batch(name, device))
+    rec["stencils"] = {f"{e}/{c}": _measure_stencil(e, c, k, p, n)
+                       for e, c, k, p, n in stencil_cases(device)}
     return rec
+
+
+# the fit's recon grids of the benchmark's configurations, and the batch
+# of two subjects (a channel of each) at the first
+STENCIL_CASES = (("sr3", (190, 232, 189), 0), ("common", (192, 256, 192), 0),
+                 ("batch2", (190, 232, 189), 2))
+STENCIL_VX = (1.0, 1.0, 1.0)
+# bytes a voxel: the input read once and the output written once (float32)
+STENCIL_BYTES = {"gradient": 16, "divergence": 16, "membrane": 8}
+
+
+def stencil_cases(device="cuda"):
+    """The stencil cases of phase 3: (entry, case, kernel call, plain call,
+    voxels), the kernels called as the ADMM body calls them (a channel view
+    of a stacked state, the scale a device tensor: float64 0-d for one
+    volume, float32 per volume for a batch), the plain chain the same
+    arithmetic in PyTorch's zero-fill ops."""
+    rng = np.random.default_rng(5)
+    out = []
+    for case, dim, B in STENCIL_CASES:
+        lead = (max(B, 1), 3)
+        V = torch.from_numpy(rng.standard_normal(lead + dim, dtype=np.float32)
+                             ).to(device)
+        P = torch.from_numpy(rng.standard_normal(lead + (3,) + dim,
+                                                 dtype=np.float32)).to(device)
+        v, p = (V[0, 1], P[0, 1]) if B == 0 else (V[:, 1], P[:, 1])
+        s = (torch.tensor(0.37, dtype=torch.float64, device=device) if B == 0
+             else torch.tensor([0.37, 1.9], device=device).reshape(B, 1, 1, 1))
+        s5 = s if B == 0 else s[..., None]
+        vx = STENCIL_VX
+        n = max(B, 1) * int(np.prod(dim))
+        out += [
+            ("gradient", case, lambda v=v, s=s5: fd.im_gradient(v, vx, scale=s),
+             lambda v=v, s=s5: s * fd.gradient_plain(v, vx), n),
+            ("divergence", case,
+             lambda p=p, s=s: fd.im_divergence(p, vx, scale=s),
+             lambda p=p, s=s: s * fd.divergence_plain(p, vx), n),
+            ("membrane", case, lambda v=v, s=s: fd.DtD(v, vx, scale=s),
+             lambda v=v, s=s: s * fd.divergence_plain(
+                 fd.gradient_plain(v, vx), vx), n),
+        ]
+    return out
+
+
+def _measure_stencil(entry, case, kern, plain, n):
+    """One stencil case of phase 3: bitwise against the plain chain, its
+    device ms beside the plain chain's and its bound. Prints a line and
+    returns the record."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    label = f"{entry}/{case}"
+    require(got.shape == want.shape and torch.equal(
+        got.view(torch.int32), want.view(torch.int32)),
+        f"{label}: not bitwise the plain chain (max abs err "
+        f"{float((got - want).abs().max())})")
+    require(float(want.abs().max()) > 0.0, f"{label}: plain result is 0")
+    ms, plain_ms = _time_ms(kern), _time_ms(plain)
+    bnd = 1e3 * STENCIL_BYTES[entry] * n / HBM_BYTES_PER_S
+    print(f"[kernels] stencil {label} ({n} voxels): bitwise | kernel "
+          f"{ms:.4f} ms | plain {plain_ms:.4f} ms ({plain_ms / ms:.2f}x) | "
+          f"{STENCIL_BYTES[entry] * n / (ms * 1e-3) / 1e9:.1f} GB/s | bound "
+          f"{bnd:.4f} ms (bytes) | share {bnd / ms:.1%}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd)
 
 
 def _degrade(gt, thick_axis, noise_sd, rng, device, rigid=None, scl=0.0):
@@ -1191,7 +1267,7 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
     t_fit = time.perf_counter() - t0
     fitloop.FitChunk._capture = capture
     syncs = (to_host.syncs - syncs0) / max(n_iter, 1)
-    launches = _counts()
+    launches, stencils = _counts(), _stencil_counts()
     peak = torch.cuda.max_memory_allocated()
 
     n_coreg = coreg["launches"]
@@ -1208,6 +1284,8 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
             "the rigid update launched no pull_grad")
     require(launches["pull"] > 0 and launches["push"] > 0,
             f"a kernel of the path never launched: {launches}")
+    require(all(n > 0 for n in stencils.values()),
+            f"a stencil of the path never launched: {stencils}")
     _check_fit(dat_y, y, obj, jtv, n_iter, max_iter)
     fig = _figures(inputs, x, y, sett, obj, n_iter, gts[0], tri, device)
     _check_vs_jax("bench", fig, converged=False)
@@ -1225,7 +1303,7 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
           f"{peak_init / 2 ** 30:.3f} GiB (host loop: "
           f"{HOST_LOOP['init_peak']}), all {peak / 2 ** 30:.3f} GiB | host "
           f"syncs/iter {syncs:.3f} (host loop: {HOST_LOOP['syncs']}) | "
-          f"launches {launches}")
+          f"launches {launches}, stencils {stencils}")
     print(f"[bench] fitted scl {scl} (simulated 0.1)")
     for c in range(3):
         inv_true = np.linalg.inv(rigids[c])
@@ -1275,7 +1353,7 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
           f"seconds captured {coreg['s']:.3f}, uncaptured {t_u:.3f} | host "
           f"syncs captured {coreg['syncs']}, uncaptured {syncs_u}")
     require(same, "the captured coreg's mat_a differs from the uncaptured")
-    return launches, n_coreg
+    return launches, n_coreg, stencils
 
 
 def _residual(mat, true):
@@ -1475,9 +1553,18 @@ def _fov_counts():
     return {"pull": pull.fov_launches, "push": push.fov_launches}
 
 
+def _stencil_counts():
+    """The finite-difference stencils' launches, by phase 3's entry names."""
+    return {"gradient": fd.im_gradient.launches,
+            "divergence": fd.im_divergence.launches,
+            "membrane": fd.DtD.launches}
+
+
 def _reset_counts():
     pull.launches = push.launches = pull_grad.launches = 0
     pull.fov_launches = push.fov_launches = 0
+    for f in fd.STENCILS:
+        f.launches = 0
 
 
 def _bench_init(device, dim, max_iter, seed=0, **kw):
@@ -1808,7 +1895,7 @@ def phase_converged(smi, device="cuda", dim=DIM_Y):
     t_fit = time.perf_counter() - t0
     fitloop.FitChunk._capture = capture
     syncs = (to_host.syncs - syncs0) / max(n_iter, 1)
-    launches = _counts()
+    launches, stencils = _counts(), _stencil_counts()
     peak = torch.cuda.max_memory_allocated()
     fig = _figures(inputs, x, y, sett, obj, n_iter, gts[0], tri, device)
     psnr, ratio = fig["psnr"], fig["sr_vs_trilinear"]
@@ -1822,8 +1909,11 @@ def phase_converged(smi, device="cuda", dim=DIM_Y):
           f"{HOST_LOOP['psnr']}, {psnr - HOST_LOOP['psnr']:+.3f}) | "
           f"sr_vs_trilinear {ratio:.4f} (host loop: {HOST_LOOP['ratio']}, "
           f"{ratio - HOST_LOOP['ratio']:+.4f}) | peak mem "
-          f"{peak / 2 ** 30:.3f} GiB | launches {launches}")
+          f"{peak / 2 ** 30:.3f} GiB | launches {launches}, stencils "
+          f"{stencils}")
     require(n_iter < sett.max_iter, f"no convergence in {n_iter} iterations")
+    require(all(n > 0 for n in stencils.values()),
+            f"a stencil of the converged fit never launched: {stencils}")
     require(bool(torch.isfinite(jtv).all()) and np.isfinite(R).all(),
             "non-finite result")
     steps = _sched_steps(fig["nll"])
@@ -1834,7 +1924,7 @@ def phase_converged(smi, device="cuda", dim=DIM_Y):
     _check_vs_jax("converged", fig, converged=True)
     require(psnr >= PSNR_FLOOR and ratio <= RATIO_CEIL,
             f"quality floor missed: psnr {psnr} dB, sr_vs_trilinear {ratio}")
-    return launches
+    return launches, stencils
 
 
 def _rel(a, b):
@@ -2002,13 +2092,13 @@ def main():
     phase_small_slice()
     phase_small_misaligned()
     phase_slice()
-    launches, launches_coreg = phase_misaligned()
+    launches, launches_coreg, stencils = phase_misaligned()
     with tempfile.TemporaryDirectory() as tmp:
         launches_atlas = phase_atlas(tmp)
         phase_ct_inplane(tmp)
         phase_cli(tmp)
         launches_batch = phase_long_runs(tmp)
-        launches_converged = phase_converged(smi)
+        launches_converged, stencils_converged = phase_converged(smi)
         launches_parallel = phase_parallel(tmp, smi)
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], launches=launches[name],
@@ -2020,7 +2110,11 @@ def main():
                     launches_parallel_fov=launches_parallel[name][1],
                     **rec[name])
                for name in ("pull", "push", "pull_grad")]
-    print(json.dumps({"kernels": kernels}))
+    for label, r in rec["stencils"].items():
+        entry = label.split("/")[0]
+        r.update(launches=stencils[entry],
+                 launches_converged=stencils_converged[entry])
+    print(json.dumps({"kernels": kernels, "stencils": rec["stencils"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

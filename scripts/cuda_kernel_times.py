@@ -13,7 +13,9 @@ then the FOV = true cases of ``fov_kernel_cases`` and each kernel's batched
 launch of ``KERNEL_BATCH`` volumes at the fit's shapes, as this tree's
 ``chip_smoke.batch_case`` makes them, where the tree has them, then pull at
 the misaligned bench fit's own maps, as this tree's
-``chip_smoke.bench_pull_cases`` makes them) it prints the max abs difference
+``chip_smoke.bench_pull_cases`` makes them, then the finite-difference
+stencils of ``chip_smoke.stencil_cases`` where the tree has them, each beside
+the plain zero-fill chain it replaced) it prints the max abs difference
 between kernel and plain version (must be 0), the kernel's device ms per
 call three times, and its host ms. A tree whose kernels read
 their maps from device memory (``ops.resample.push_plan`` exists) is given
@@ -90,6 +92,12 @@ def main():
         err = float((kern() - tr.pull_plain(inp, Mc, out_dim)).abs().max())
         report(cs, args.label, f"{name}/{case}", kern, err,
                "device" if device_maps else "host")
+    for entry, case, kern, plain, _ in (cs.stencil_cases("cuda") if hasattr(
+            cs, "stencil_cases") else ()):
+        err = float((kern() - plain()).abs().max())
+        report(cs, args.label, f"stencil {entry}/{case}", kern, err, "device")
+        report(cs, args.label, f"plain chain {entry}/{case}", plain, 0.0,
+               "device")
 
 
 def report(cs, label, case, kern, err, maps):

@@ -793,3 +793,156 @@ def test_captures_outlast_the_stream_pool(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert int(n) == 7 and float(out[0]) == 3.0, k
+
+
+# the finite-difference stencils (ops/finite_diff.py): the fit's recon grids
+# (brainweb_sr3, brainweb_common), and small ones with sizes 1 and 2 and
+# extents off the kernel's 32 (z) x 8 (y) x 16 (x) tile
+STENCIL_DIMS = [(190, 232, 189), (192, 256, 192), (1, 1, 1), (2, 1, 5),
+                (1, 2, 33), (3, 9, 2), (17, 7, 65), (33, 17, 31)]
+# voxel sizes as the fit passes them (float32 values): unit, and off unit
+STENCIL_VX = [(1.0, 1.0, 1.0), tuple(float(np.float32(v))
+                                     for v in (0.8, 1.3, 0.9))]
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _stencil_vol(shape, seed, cuda):
+    """Normal values with -0.0, +0.0 and float32 denormals in a tenth of
+    the voxels."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(shape).astype(np.float32)
+    flat = v.reshape(-1)
+    idx = rng.choice(flat.size, size=flat.size // 10, replace=False)
+    flat[idx[0::3]] = -0.0
+    flat[idx[1::3]] = 0.0
+    flat[idx[2::3]] = np.float32(3e-39) * rng.choice([-1.0, 1.0],
+                                                     len(idx[2::3]))
+    return torch.from_numpy(v).to(cuda)
+
+
+@pytest.mark.parametrize("vx", STENCIL_VX, ids=["unit", "aniso"])
+@pytest.mark.parametrize("dim", STENCIL_DIMS, ids=str)
+def test_stencils_match_plain_chain(cuda, dim, vx):
+    """Each stencil launch against the plain zero-fill chain on the card,
+    bit for bit (-0.0 and denormals included), unscaled and with a 0-d
+    float64 factor as the single fit's rho lam^2; one count a launch."""
+    from unires_torch.ops import finite_diff as fd
+
+    v = _stencil_vol(dim, 21, cuda)
+    p = _stencil_vol((3,) + dim, 22, cuda)
+    s = torch.tensor(0.7316, dtype=torch.float64, device=cuda)
+    n0 = [f.launches for f in fd.STENCILS]
+    got = [fd.im_gradient(v, vx), fd.im_divergence(p, vx), fd.DtD(v, vx),
+           fd.im_gradient(v, vx, scale=s), fd.im_divergence(p, vx, scale=s),
+           fd.DtD(v, vx, scale=s)]
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fd.STENCILS, n0)] == [2, 2, 2]
+    g = fd.gradient_plain(v, vx)
+    d = fd.divergence_plain(p, vx)
+    m = fd.divergence_plain(g, vx)
+    want = [g, d, m, s * g, s * d, s * m]
+    assert float(m.abs().max()) > 0
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("dim", [(190, 232, 189), (17, 7, 65), (2, 3, 1)],
+                         ids=str)
+def test_stencils_batch_of_channel_views(cuda, dim):
+    """B = 2 strided channel views of a stacked (B, C, X, Y, Z) state, as
+    the batched fit chunk passes them, with one float32 factor per volume:
+    one launch each, bitwise the plain chain and the unbatched launches."""
+    from unires_torch.ops import finite_diff as fd
+
+    B, vx = 2, STENCIL_VX[1]
+    V = _stencil_vol((B, 3) + dim, 23, cuda)
+    v = V[:, 1]
+    p = _stencil_vol((B, 3, 3) + dim, 24, cuda)[:, 2]  # (B, 3, ...) fields
+    s = torch.tensor([0.6, 1.7], dtype=torch.float64, device=cuda)
+    s4 = s.to(torch.float32).reshape(B, 1, 1, 1)
+    s5 = s4[..., None]
+    n0 = [f.launches for f in fd.STENCILS]
+    got = [fd.im_gradient(v, vx, scale=s5), fd.im_divergence(p, vx, scale=s4),
+           fd.DtD(v, vx, scale=s4)]
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fd.STENCILS, n0)] == [1, 1, 1]
+    g = fd.gradient_plain(v, vx)
+    want = [s5 * g, s4 * fd.divergence_plain(p, vx),
+            s4 * fd.divergence_plain(g, vx)]
+    one = [torch.stack([fd.im_gradient(v[b], vx, scale=s[b])
+                        for b in range(B)]),
+           torch.stack([fd.im_divergence(p[b], vx, scale=s[b])
+                        for b in range(B)]),
+           torch.stack([fd.DtD(v[b], vx, scale=s[b]) for b in range(B)])]
+    for a, b, c in zip(got, want, one):
+        assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a),
+                                                               _bits(c))
+
+
+def test_captured_membrane_follows_its_device_scale(cuda):
+    """The membrane launch captured in a CUDA graph at one scale replays at
+    the scale its device buffer holds, bitwise the plain chain, and its
+    counter counts the replays."""
+    from unires_torch.ops import finite_diff as fd
+    from unires_torch.utils.graph import capture
+
+    dim, vx = (37, 20, 70), STENCIL_VX[1]
+    V = _stencil_vol((2, 3) + dim, 25, cuda)
+    s = torch.tensor([0.5, 2.0], dtype=torch.float32, device=cuda)
+    out = torch.empty((2,) + dim, device=cuda)
+    out.copy_(fd.DtD(V[:, 0], vx, scale=s.reshape(2, 1, 1, 1)))
+    graph = capture(lambda: out.copy_(
+        fd.DtD(V[:, 0], vx, scale=s.reshape(2, 1, 1, 1))))
+    m = fd.divergence_plain(fd.gradient_plain(V[:, 0], vx), vx)
+    for scale in ([0.25, -3.0], [1.3, 0.0]):
+        s.copy_(torch.tensor(scale))
+        n0 = fd.DtD.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        assert fd.DtD.launches == n0 + 1
+        assert torch.equal(_bits(out), _bits(s.reshape(2, 1, 1, 1) * m))
+
+
+def test_stencils_dispatch_by_type_layout_and_difference(cuda):
+    """A CUDA tensor launches the kernel or raises: float64 raises
+    TypeError; a volume or a field that is not C-contiguous, and leading
+    axes that no single batch stride describes, raise ValueError, as does a
+    scale that is neither one factor nor one per volume. The 'backward' and
+    'central' differences, which have no kernel, take the plain chain (no
+    launch)."""
+    from unires_torch.ops import finite_diff as fd
+
+    vx = STENCIL_VX[1]
+    v = _stencil_vol((5, 6, 7), 26, cuda)
+    p = _stencil_vol((3, 5, 6, 7), 27, cuda)
+    n0 = [f.launches for f in fd.STENCILS]
+    for which in ("backward", "central"):
+        assert torch.equal(fd.DtD(v, vx, which),
+                           fd.divergence_plain(fd.gradient_plain(v, vx, which),
+                                               vx, which))
+        assert torch.equal(fd.im_gradient(v, vx, which),
+                           fd.gradient_plain(v, vx, which))
+        assert torch.equal(fd.im_divergence(p, vx, which),
+                           fd.divergence_plain(p, vx, which))
+    torch.cuda.synchronize()
+    assert [f.launches for f in fd.STENCILS] == n0
+    for fn in (fd.im_gradient, fd.DtD):
+        with pytest.raises(TypeError):
+            fn(v.double(), vx)
+        with pytest.raises(ValueError):
+            fn(v.transpose(0, 2), vx)
+    with pytest.raises(TypeError):
+        fd.im_divergence(p.double(), vx)
+    with pytest.raises(ValueError):
+        fd.im_divergence(p.transpose(0, 1), vx)
+    # (2, 2) volumes whose leading axes are swapped: no one batch stride
+    w = _stencil_vol((2, 2, 5, 6, 7), 28, cuda).transpose(0, 1)
+    with pytest.raises(ValueError, match="batch stride"):
+        fd.DtD(w, vx)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fd.STENCILS] == n0
+    with pytest.raises(ValueError):
+        fd.DtD(v, vx, scale=torch.ones(5, 1, 1, device=cuda))

@@ -1,6 +1,7 @@
 """unires_torch's small operators against unires_tpu's.
 
-im_gradient / im_divergence and DtD (three difference types), the
+im_gradient / im_divergence and DtD (three difference types; their
+``scale`` form against the scaled chain, bitwise), the
 polyphase strided blur and its adjoint, the dense-kernel blur pair, the
 even/odd scaling and slice groups, and the ADMM tables (DCT and Fourier
 membrane eigenvalues, the zero z / w), on the same numpy-made inputs.
@@ -101,6 +102,52 @@ def test_dtd_matches_jax(which):
     u = _vol(DIM, 6)
     got = tfd.DtD(torch.from_numpy(u), VX, which).numpy()
     _close(got, np.asarray(jfd.DtD(jnp.asarray(u), jnp.asarray(VX), which)))
+
+
+SCALES = {  # the scale forms the ADMM body passes: one float64 factor (a
+    # single fit's rho lam^2), and one float32 factor per subject of a batch
+    "one": lambda B: torch.tensor(0.731, dtype=torch.float64),
+    "per_volume": lambda B: torch.tensor([0.731, 1.9], dtype=torch.float32)[:B],
+}
+
+
+def _channel_view(B, seed):
+    """Channel 1 of a stacked (B, 3, X, Y, Z) state: (B, X, Y, Z) volumes,
+    each contiguous, 3 volumes apart (a single fit's (X, Y, Z) for B = 0)."""
+    st = torch.from_numpy(_vol((max(B, 1), 3) + DIM, seed))
+    return st[0, 1] if B == 0 else st[:, 1]
+
+
+@pytest.mark.parametrize("B,scale", [(0, "one"), (2, "one"),
+                                     (2, "per_volume")])
+def test_scaled_stencils_equal_scale_times_the_chain(B, scale):
+    """DtD / im_gradient / im_divergence with ``scale`` equal ``scale *``
+    the unscaled chain bit for bit, for a 0-d factor and one per volume."""
+    v = _channel_view(B, 10)
+    p = torch.from_numpy(_vol(tuple(v.shape[:-3]) + (3,) + DIM, 11))
+    s = SCALES[scale](B)
+    sv = s if s.dim() == 0 else s.to(torch.float32).reshape(B, 1, 1, 1)
+    sg = sv if s.dim() == 0 else sv[..., None]
+    assert torch.equal(tfd.DtD(v, VX, scale=sv),
+                       sv * tfd.im_divergence(tfd.im_gradient(v, VX), VX))
+    assert torch.equal(tfd.im_gradient(v, VX, scale=sg),
+                       sg * tfd.im_gradient(v, VX))
+    assert torch.equal(tfd.im_divergence(p, VX, scale=sv),
+                       sv * tfd.im_divergence(p, VX))
+
+
+@pytest.mark.parametrize("B", [0, 2])
+def test_dispatching_stencils_are_adjoint(B):
+    """<D v, p> = <v, D^T p> and <D v, D v> = <v, D^T D v> through the
+    public functions, on a batch of strided channel views too."""
+    v = _channel_view(B, 12)
+    p = torch.from_numpy(_vol(tuple(v.shape[:-3]) + (3,) + DIM, 13))
+    _adjoint(v.numpy(), tfd.im_gradient(v, VX).numpy(), p.numpy(),
+             tfd.im_divergence(p, VX).numpy())
+    g = tfd.im_gradient(v, VX).double()
+    lhs = float((g * g).sum())
+    rhs = float((v.double() * tfd.DtD(v, VX).double()).sum())
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
 
 
 DENSE = [  # (kernel shape, ratio, output grid): 3D, and 2D

@@ -266,6 +266,7 @@ def test_one_chunk_span_a_chunk(chans, chunk_iters):
     assert sum(c.attrs["iters"] for c in chunks) == n_iter == 5
     assert fit.attrs["n_iter"] == [n_iter]
     assert fit.attrs["syncs"] == syncs > 0
+    assert fit.attrs["stencils"] == 0  # the plain chain on the CPU
     assert fit.ids == (trace.subject(y),)
 
 

@@ -8,16 +8,24 @@ takes seconds. The library lands in
 of the sources and the build command, so an edited source is rebuilt and a
 stale library is never loaded. Nothing is built at import time: the first
 kernel launch builds.
+
+Besides, what every kernel wrapper shares around its launch: the device
+launch counter (:class:`KernelCount`, :class:`Counted`), the check of a
+launch's error code and the int32 size check.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import numpy as np
+import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "unires_torch_kernels"
@@ -28,8 +36,13 @@ _COMPILE = [f for f in _FLAGS if f != "-shared"] + ["-c"]
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# C signatures of csrc/resample.cu and csrc/graph.cu (every pointer and the
-# stream as c_void_p, so that ctypes never truncates a 64-bit address)
+_F = ctypes.c_float
+# the stencils of csrc/finite_diff.cu: input, output, scale, its stride,
+# (nx, ny, nz), batch, the batch's stride, 1 / vx, counter, stream
+_STENCIL = [_VP] * 3 + [_I] * 5 + [_LL] + [_F] * 3 + [_VP, _VP]
+# C signatures of csrc/resample.cu, csrc/finite_diff.cu and csrc/graph.cu
+# (every pointer and the stream as c_void_p, so that ctypes never truncates
+# a 64-bit address)
 _SIGNATURES = {
     "unires_pull": [_VP] * 4 + [_I] * 7 + [_VP, _VP],
     "unires_push": [_VP] * 4 + [_I] * 10 + [_VP, _VP],
@@ -37,6 +50,9 @@ _SIGNATURES = {
     "unires_pull_batch": [_VP] * 4 + [_I] * 8 + [_LL, _VP, _VP],
     "unires_push_batch": [_VP] * 4 + [_I] * 11 + [_LL, _VP, _VP],
     "unires_pull_grad_batch": [_VP, _VP, _VP] + [_I] * 7 + [_LL, _VP, _VP],
+    "unires_fd_gradient": _STENCIL,
+    "unires_fd_divergence": _STENCIL,
+    "unires_fd_membrane": _STENCIL,
     "unires_if_begin": [_VP] * 4,
     "unires_if_end": [_VP, _VP],
     "unires_while_begin": [_VP] * 5,
@@ -128,3 +144,69 @@ def check(err: int, name: str) -> None:
     """Raise if a launch reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+class KernelCount:
+    """The launches of one kernel, counted by the kernel itself: thread 0
+    of its first block adds one to a (launches, FOV = true launches) pair of
+    64-bit device counters, one pair per device. A replay of a captured
+    graph therefore counts what it launches, and a launch that a graph's
+    conditional node skips counts nothing. Reading a count waits for the
+    device; setting one zeroes the device counters."""
+
+    def __init__(self):
+        self._dev = {}  # device index -> int64 tensor (2,)
+        self._base = [0, 0]
+
+    def ptr(self, device: torch.device) -> int:
+        t = self._dev.get(device.index)
+        if t is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a kernel's first launch on a device must "
+                                   "come before any graph capture")
+            t = torch.zeros(2, dtype=torch.int64, device=device)
+            self._dev[device.index] = t
+        return t.data_ptr()
+
+    def read(self, i: int) -> int:
+        return self._base[i] + sum(int(t[i]) for t in self._dev.values())
+
+    def mark(self) -> dict:
+        """The device counters as they stand, copied on the device (no
+        wait): the start of a :meth:`since`."""
+        return {k: t.clone() for k, t in self._dev.items()}
+
+    def since(self, mark: dict) -> int:
+        """Launches counted since ``mark`` (waits for the device)."""
+        return sum(int(t[0] - mark[k][0]) if k in mark else int(t[0])
+                   for k, t in self._dev.items())
+
+    def set(self, i: int, value: int) -> None:
+        for t in self._dev.values():
+            t[i].zero_()
+        self._base[i] = int(value)
+
+
+class Counted:
+    """A kernel wrapper; ``launches`` / ``fov_launches`` read and set its
+    :class:`KernelCount`."""
+
+    def __init__(self, fn):
+        functools.update_wrapper(self, fn)
+        self.count = KernelCount()
+
+    def __call__(self, *args, **kw):
+        return self.__wrapped__(*args, **kw)
+
+    launches = property(lambda self: self.count.read(0),
+                        lambda self, v: self.count.set(0, v))
+    fov_launches = property(lambda self: self.count.read(1),
+                            lambda self, v: self.count.set(1, v))
+
+
+def check_size(*dims) -> None:
+    """Raise unless every volume of ``dims`` holds < 2**31 voxels: the
+    kernels index in int32."""
+    for dim in dims:
+        if int(np.prod(np.asarray(dim, np.int64))) >= 2 ** 31:
+            raise ValueError(f"volume {tuple(dim)} too large for int32 indexing")

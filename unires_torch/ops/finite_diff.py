@@ -9,10 +9,32 @@ normal matrix, so adjointness is load-bearing).
 
 Layout: the gradient of a (X, Y, Z) image is (3, X, Y, Z); leading axes
 (a batch of images) ride along, (..., X, Y, Z) -> (..., 3, X, Y, Z).
+
+Two implementations. The plain one (``gradient_plain`` /
+``divergence_plain``) shifts with a zero fill and subtracts, axis by axis,
+and is what a CPU tensor takes. A CUDA tensor takes one hand-written stencil
+launch instead (``unires_torch/csrc/finite_diff.cu``: gradient, divergence
+and the membrane operator D^T D), which reads its input once and writes its
+output once and rounds as the plain chain on the card does, so the two agree
+to the bit. The kernel takes float32 volumes, each C-contiguous, with any
+stride between the volumes of a batch; for any other CUDA tensor the public
+functions raise (TypeError for the dtype, ValueError for the layout), as the
+resample wrappers do. The one exception: the 'backward' and 'central'
+differences, which no configuration uses, have no kernel and take the plain
+chain on either device. Each public function takes an optional ``scale``,
+one factor or one per volume shaped to broadcast (a 0-d or (B, 1, ...)
+tensor), multiplied in last as ``scale * result``; the kernel reads it from
+device memory, so it may change between the replays of a captured graph.
+Each counts its kernel's launches on the device (``im_gradient.launches``,
+``im_divergence.launches``, ``DtD.launches``; :func:`stencil_marks` /
+:func:`stencil_launches_since`).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .cuda_build import Counted, check, check_size, kernels
 
 
 def _roll_zero(u: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
@@ -26,7 +48,8 @@ def _roll_zero(u: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
     raise ValueError(shift)
 
 
-def im_gradient(dat: torch.Tensor, vx, which: str = "forward") -> torch.Tensor:
+def gradient_plain(dat: torch.Tensor, vx, which: str = "forward"
+                   ) -> torch.Tensor:
     """D dat: (..., 3, X, Y, Z), per-axis finite difference divided by voxel
     size."""
     gs = []
@@ -44,8 +67,10 @@ def im_gradient(dat: torch.Tensor, vx, which: str = "forward") -> torch.Tensor:
     return torch.stack(gs, dim=-4)
 
 
-def im_divergence(p: torch.Tensor, vx, which: str = "forward") -> torch.Tensor:
-    """D^T p: exact adjoint of :func:`im_gradient` (NOT the negative adjoint)."""
+def divergence_plain(p: torch.Tensor, vx, which: str = "forward"
+                     ) -> torch.Tensor:
+    """D^T p: exact adjoint of :func:`gradient_plain` (NOT the negative
+    adjoint)."""
     out = torch.zeros_like(p.select(-4, 0))
     for d in range(3):
         ax = d - 3
@@ -62,6 +87,118 @@ def im_divergence(p: torch.Tensor, vx, which: str = "forward") -> torch.Tensor:
     return out
 
 
-def DtD(dat: torch.Tensor, vx, which: str = "forward") -> torch.Tensor:
-    """D^T (D dat), the membrane operator of the CG normal matrix."""
-    return im_divergence(im_gradient(dat, vx, which), vx, which)
+def _scaled(scale, r: torch.Tensor) -> torch.Tensor:
+    return r if scale is None else scale * r
+
+
+def _stencil_batch(t: torch.Tensor, which: str, nd: int, name: str):
+    """``t`` (..., X, Y, Z) (nd = 3) or (..., 3, X, Y, Z) (nd = 4) viewed as
+    the kernel's batch (B, ...), or None where the plain chain runs: a CPU
+    tensor, or the 'backward' and 'central' differences. Raises for a CUDA
+    tensor the kernel does not take: not float32, a volume (a field) not
+    C-contiguous, or leading axes that no single stride describes."""
+    if t.device.type == "cpu" or which in ("backward", "central"):
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    if which != "forward":
+        raise ValueError(which)
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    if t.dim() < nd or t.numel() == 0:
+        raise ValueError(f"{name}: expected non-empty volumes of {nd} axes, "
+                         f"got {tuple(t.shape)}")
+    if not t[(0,) * (t.dim() - nd)].is_contiguous():
+        raise ValueError(f"{name}: the kernel needs contiguous volumes")
+    try:
+        return t.view((-1,) + tuple(t.shape[-nd:]))
+    except RuntimeError:
+        raise ValueError(f"{name}: the leading axes of {tuple(t.shape)} "
+                         f"(strides {t.stride()}) do not fold into one "
+                         f"batch stride") from None
+
+
+def _launch(fn, entry: str, src: torch.Tensor, out: torch.Tensor, nd: int,
+            vx, scale) -> torch.Tensor:
+    """One launch of ``entry`` over the batch ``src`` (B, [3,] X, Y, Z) into
+    ``out``, whose volumes have ``nd`` axes, counted in ``fn``'s
+    launches."""
+    B, dim = src.shape[0], tuple(src.shape[-3:])
+    check_size(dim)
+    dev = src.device
+    s, sstride = None, 0
+    if scale is not None:
+        s = torch.as_tensor(scale, dtype=torch.float32, device=dev)
+        if s.numel() != 1:
+            if (s.numel() != B or s.dim() < nd
+                    or any(n != 1 for n in s.shape[-nd:])):
+                raise ValueError(f"{entry}: scale {tuple(s.shape)} is neither "
+                                 f"one factor nor one per volume of {B}")
+            s = s.reshape(B)
+            sstride = s.stride(0)
+    # the divide by vx as PyTorch's CUDA kernel divides by a Python number:
+    # a multiply by its float32 reciprocal
+    inv = [float(np.float32(1.0) / np.float32(float(vx[d]))) for d in range(3)]
+    lib = kernels.get()
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(
+            src.data_ptr(), out.data_ptr(), None if s is None else s.data_ptr(),
+            sstride, *dim, B, src.stride(0), *inv, fn.count.ptr(dev),
+            torch.cuda.current_stream().cuda_stream)
+    check(err, entry)
+    return out
+
+
+def im_gradient(dat: torch.Tensor, vx, which: str = "forward",
+                scale=None) -> torch.Tensor:
+    """``scale *`` D dat: (..., 3, X, Y, Z), per-axis finite difference
+    divided by voxel size."""
+    v = _stencil_batch(dat, which, 3, "im_gradient")
+    if v is None:
+        return _scaled(scale, gradient_plain(dat, vx, which))
+    out = torch.empty(dat.shape[:-3] + (3,) + dat.shape[-3:],
+                      dtype=torch.float32, device=dat.device)
+    return _launch(im_gradient, "unires_fd_gradient", v, out, 4, vx,
+                   scale)
+
+
+def im_divergence(p: torch.Tensor, vx, which: str = "forward",
+                  scale=None) -> torch.Tensor:
+    """``scale *`` D^T p: exact adjoint of :func:`im_gradient` (NOT the
+    negative adjoint)."""
+    q = _stencil_batch(p, which, 4, "im_divergence")
+    if q is None:
+        return _scaled(scale, divergence_plain(p, vx, which))
+    out = torch.empty(p.shape[:-4] + p.shape[-3:], dtype=torch.float32,
+                      device=p.device)
+    return _launch(im_divergence, "unires_fd_divergence", q, out, 3, vx,
+                   scale)
+
+
+def DtD(dat: torch.Tensor, vx, which: str = "forward",
+        scale=None) -> torch.Tensor:
+    """``scale *`` D^T (D dat), the membrane operator of the CG normal
+    matrix."""
+    v = _stencil_batch(dat, which, 3, "DtD")
+    if v is None:
+        return _scaled(scale, divergence_plain(
+            gradient_plain(dat, vx, which), vx, which))
+    out = torch.empty(dat.shape, dtype=torch.float32, device=dat.device)
+    return _launch(DtD, "unires_fd_membrane", v, out, 3, vx, scale)
+
+
+im_gradient = Counted(im_gradient)
+im_divergence = Counted(im_divergence)
+DtD = Counted(DtD)
+STENCILS = (im_gradient, im_divergence, DtD)
+
+
+def stencil_marks() -> list:
+    """The stencil kernels' device counters as they stand (no wait)."""
+    return [f.count.mark() for f in STENCILS]
+
+
+def stencil_launches_since(marks: list) -> int:
+    """The stencil kernels' launches since :func:`stencil_marks` gave
+    ``marks``, on every device (waits for the devices)."""
+    return sum(f.count.since(m) for f, m in zip(STENCILS, marks))

@@ -42,7 +42,7 @@ slab's frame), is a host array passed by value: it is fixed for a solver.
 
 push visits, for each target, only the sources within :func:`push_reach` of
 ``Minv . v``. The launch counts are kept by the kernels themselves, on the
-device (:class:`KernelCount`), so that the launches of a graph's replays
+device (:class:`.cuda_build.KernelCount`), so that the launches of a graph's replays
 count as the eager ones do.
 """
 from __future__ import annotations
@@ -52,7 +52,7 @@ import functools
 import numpy as np
 import torch
 
-from .cuda_build import check, kernels
+from .cuda_build import Counted, check, check_size, kernels
 from .lie import inv33, matvec3
 
 PLAN_SIZE = 32  # floats of a push plan: M, Minv, reach (3), window (3), pad
@@ -392,54 +392,6 @@ def pull_grad_plain(vol: torch.Tensor, M, out_dim) -> torch.Tensor:
 # Public wrappers: plain version on the CPU, CUDA kernel on the card
 # ---------------------------------------------------------------------------
 
-class KernelCount:
-    """The launches of one kernel, counted by the kernel itself: thread 0
-    of its first block adds one to a (launches, FOV = true launches) pair of
-    64-bit device counters, one pair per device. A replay of a captured
-    graph therefore counts what it launches, and a launch that a graph's
-    conditional node skips counts nothing. Reading a count waits for the
-    device; setting one zeroes the device counters."""
-
-    def __init__(self):
-        self._dev = {}  # device index -> int64 tensor (2,)
-        self._base = [0, 0]
-
-    def ptr(self, device: torch.device) -> int:
-        t = self._dev.get(device.index)
-        if t is None:
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError("a kernel's first launch on a device must "
-                                   "come before any graph capture")
-            t = torch.zeros(2, dtype=torch.int64, device=device)
-            self._dev[device.index] = t
-        return t.data_ptr()
-
-    def read(self, i: int) -> int:
-        return self._base[i] + sum(int(t[i]) for t in self._dev.values())
-
-    def set(self, i: int, value: int) -> None:
-        for t in self._dev.values():
-            t[i].zero_()
-        self._base[i] = int(value)
-
-
-class _Counted:
-    """A kernel wrapper; ``launches`` / ``fov_launches`` read and set its
-    :class:`KernelCount`."""
-
-    def __init__(self, fn):
-        functools.update_wrapper(self, fn)
-        self.count = KernelCount()
-
-    def __call__(self, *args, **kw):
-        return self.__wrapped__(*args, **kw)
-
-    launches = property(lambda self: self.count.read(0),
-                        lambda self, v: self.count.set(0, v))
-    fov_launches = property(lambda self: self.count.read(1),
-                            lambda self, v: self.count.set(1, v))
-
-
 def _on_cpu(t: torch.Tensor, name: str) -> bool:
     """True for a CPU tensor; checks a CUDA tensor for the kernel (a volume,
     or a batch of volumes each C-contiguous, the batch's stride free);
@@ -467,13 +419,6 @@ def _per_volume(fn, t: torch.Tensor, M, *args, **kw) -> torch.Tensor:
     """A plain version over a batch: ``fn`` of each volume at its map,
     stacked."""
     return torch.stack([fn(t[b], M[b], *args, **kw) for b in range(len(t))])
-
-
-def _check_size(*dims) -> None:
-    # the kernels index in int32: every volume must hold < 2**31 voxels
-    for dim in dims:
-        if int(np.prod(np.asarray(dim, np.int64))) >= 2 ** 31:
-            raise ValueError(f"volume {tuple(dim)} too large for int32 indexing")
 
 
 def _check_order(order: int) -> int:
@@ -544,7 +489,7 @@ def pull(vol: torch.Tensor, M, out_dim, order: int = 1,
     B = len(vol) if _batched(vol) else 0
     Md = _device_map(M, vol.device, "pull", B)
     fov = _as_fov(fov)
-    _check_size(vol.shape[-3:], out_dim)
+    check_size(vol.shape[-3:], out_dim)
     out = torch.empty(vol.shape[:-3] + out_dim, dtype=torch.float32,
                       device=vol.device)
     lib = kernels.get()
@@ -561,7 +506,7 @@ def pull(vol: torch.Tensor, M, out_dim, order: int = 1,
     return out
 
 
-pull = _Counted(pull)
+pull = Counted(pull)
 
 
 def push(vals: torch.Tensor, M, vol_dim, order: int = 1, Minv=None,
@@ -604,7 +549,7 @@ def push(vals: torch.Tensor, M, vol_dim, order: int = 1, Minv=None,
             if B else host_plan(M, Minv), dev)
     window = (-1, -1, -1) if window is None else _check_window(window)
     fov = _as_fov(fov)
-    _check_size(src_dim, vol_dim)
+    check_size(src_dim, vol_dim)
     out = torch.empty(vals.shape[:-3] + vol_dim, dtype=torch.float32,
                       device=dev)
     lib = kernels.get()
@@ -620,7 +565,7 @@ def push(vals: torch.Tensor, M, vol_dim, order: int = 1, Minv=None,
     return out
 
 
-push = _Counted(push)
+push = Counted(push)
 
 
 def pull_grad(vol: torch.Tensor, M, out_dim) -> torch.Tensor:
@@ -632,7 +577,7 @@ def pull_grad(vol: torch.Tensor, M, out_dim) -> torch.Tensor:
         return pull_grad_plain(vol, M, out_dim)
     B = len(vol) if _batched(vol) else 0
     Md = _device_map(M, vol.device, "pull_grad", B)
-    _check_size(vol.shape[-3:], out_dim + (3,))
+    check_size(vol.shape[-3:], out_dim + (3,))
     out = torch.empty(vol.shape[:-3] + out_dim + (3,), dtype=torch.float32,
                       device=vol.device)
     lib = kernels.get()
@@ -649,4 +594,4 @@ def pull_grad(vol: torch.Tensor, M, out_dim) -> torch.Tensor:
     return out
 
 
-pull_grad = _Counted(pull_grad)
+pull_grad = Counted(pull_grad)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..geometry import fov_centre, rigid_from_q
+from ..ops.finite_diff import stencil_launches_since, stencil_marks
 from ..pipeline.fit import _gather_subdats, _sync_state, chunk_len, get_sched
 from ..solvers.fitloop import (init_state, make_batch_chunk, stack_states,
                                subject_state)
@@ -206,17 +207,20 @@ def fit_batch(xs, ys, sett, devices=None, capture=None):
     reads of all devices together: one per chunk per device.
 
     The call is a ``fit`` span (``utils.trace``) with the subjects' ids,
-    ``B``, each subject's ``n_iter`` and the host reads (``syncs``); each
-    device's spans nest in it, on that device's thread.
+    ``B``, each subject's ``n_iter``, the host reads (``syncs``) and the
+    finite-difference stencils' launches (``stencils``, one serving the
+    batch, read after the fit); each device's spans nest in it, on that
+    device's thread.
     """
     B = len(xs)
     if B == 0:
         return []
     with trace.span("fit", ids=trace.subjects(ys) or None, B=B) as span:
-        syncs0 = to_host.syncs
+        syncs0, marks = to_host.syncs, stencil_marks()
         results = _fit_batch(xs, ys, sett, devices, capture, span)
         span.attrs.update(n_iter=[r[-1] for r in results],
-                          syncs=to_host.syncs - syncs0)
+                          syncs=to_host.syncs - syncs0,
+                          stencils=stencil_launches_since(marks))
     return results
 
 

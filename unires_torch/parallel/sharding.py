@@ -31,7 +31,7 @@ import torch.distributed as dist
 
 from ..models.forward import make_obs_ops
 from ..models.proj_op import ProjOp
-from ..ops.finite_diff import im_divergence, im_gradient
+from ..ops.finite_diff import DtD, im_divergence, im_gradient
 from ..solvers.admm import dct_apply, dct_matrices, dct_membrane_eigs
 from ..solvers.cg import cg
 
@@ -176,11 +176,13 @@ def make_sharded_admm_step(po: ProjOp | list, method: str, sett,
             rhs = rhs + tc[n] * At(xc[n], M[n], Minv[n], sc[n])
             cdiag = cdiag + tc[n] * torch.mean(
                 AtA(ones_y, M[n], Minv[n], sc[n]))
-        rhs = rhs - lc * im_divergence(wc - rho * zc, vx_y, diff)
+        # the prior's factors on the device, as the kernels read them
+        s_rhs, s_lhs = torch.tensor([lc, rho * lc * lc], dtype=torch.float32,
+                                    device=dev)
+        rhs = rhs - im_divergence(wc - rho * zc, vx_y, diff, scale=s_rhs)
 
         def lhs(v):
-            out = rho * lc * lc * im_divergence(
-                im_gradient(v, vx_y, diff), vx_y, diff)
+            out = DtD(v, vx_y, diff, scale=s_lhs)
             for n in range(R_n):
                 out = out + tc[n] * ops[n][2](v, M[n], Minv[n], sc[n])
             return out

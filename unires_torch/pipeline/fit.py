@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..geometry import fov_centre, rigid_from_q
+from ..ops.finite_diff import stencil_launches_since, stencil_marks
 from ..ops.resample import affine_to_M, pull
 from ..solvers.admm import step_size
 from ..solvers.fitloop import FitState, init_state, make_fit_chunk
@@ -326,12 +327,15 @@ def fit(x: XData, y: YData, sett, state: FitState = None, capture=None):
     fresh.
 
     The call is a ``fit`` span (``utils.trace``) with the subject's
-    ``n_iter`` and its host reads (``syncs``, the capture's wait included).
+    ``n_iter``, its host reads (``syncs``, the capture's wait included) and
+    the finite-difference stencils' launches (``stencils``, read from the
+    device after the fit's own last read; 0 where the plain chain ran).
     """
     with trace.span("fit", ids=trace.subjects([y]) or None, B=1) as span:
-        syncs0 = to_host.syncs
+        syncs0, marks = to_host.syncs, stencil_marks()
         out = _fit(x, y, sett, state, capture)
-        span.attrs.update(n_iter=[out[-1]], syncs=to_host.syncs - syncs0)
+        span.attrs.update(n_iter=[out[-1]], syncs=to_host.syncs - syncs0,
+                          stencils=stencil_launches_since(marks))
     return out
 
 

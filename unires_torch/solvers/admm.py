@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..models.forward import make_obs_ops, obs_dyn_args
-from ..ops.finite_diff import im_divergence, im_gradient
+from ..ops.finite_diff import DtD, im_divergence, im_gradient
 from ..utils.batch import each, sum_f64
 from .cg import cg_batched
 
@@ -318,9 +318,9 @@ def make_admm_body(x, y, sett):
                         xdats[c][n], Ms[c][n], Minvs[c][n], scls[c][n])
                 else:
                     rhs = rhs + tau * xdats[c][n]
-            div = im_divergence(chan(w, c) - _f32(rho, 4) * chan(z, c), vx,
-                                diff)
-            rhs_all.append(rhs - _f32(lams[..., c], 3) * div)
+            rhs_all.append(rhs - im_divergence(
+                chan(w, c) - _f32(rho, 4) * chan(z, c), vx, diff,
+                scale=_f32(lams[..., c], 3)))
         rhs_all = torch.stack(rhs_all, dim=-4).reshape((-1,) + dim_y)
 
         def lhs_all(V):
@@ -329,8 +329,7 @@ def make_admm_body(x, y, sett):
             for c in range(C):
                 lam = lams[..., c]
                 Vc = chan(V, c)
-                out = _f32(rho * lam * lam, 3) * im_divergence(
-                    im_gradient(Vc, vx, diff), vx, diff)
+                out = DtD(Vc, vx, diff, scale=_f32(rho * lam * lam, 3))
                 for n in range(len(x[c])):
                     tau = _f32(taus[c][n], 3)
                     if do_proj:
@@ -363,8 +362,8 @@ def make_admm_body(x, y, sett):
                 nll_xy = nll_xy + _half(taus[c][n]) * sum_f64(res * res)
 
         # ---- gradients for z/w (and the JTV prior term) ----
-        Dys = torch.stack([_f32(lams[..., c], 4)
-                           * im_gradient(chan(ys, c), vx, diff)
+        Dys = torch.stack([im_gradient(chan(ys, c), vx, diff,
+                                       scale=_f32(lams[..., c], 4))
                            for c in range(C)], dim=-5)  # (..., C, 3, *dim_y)
         nll_y = each(lambda d: _f64_sum(torch.sqrt(torch.sum(d, dim=(0, 1)))),
                      Dys * Dys, 5)
