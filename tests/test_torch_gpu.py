@@ -561,6 +561,51 @@ def test_captured_chunk_matches_uncaptured(cuda):
     assert torch.equal(a.state.ys, b.state.ys)
 
 
+def test_captured_denoising_fit_matches_uncaptured(cuda):
+    """UniRes' denoising method (``vx = 0`` on inputs at the recon's voxel
+    size) through ``fit``, captured and uncaptured, from one init with
+    unified rigid on: scaling is off (every scale stays 0), the rigid round
+    moves the poses on the observations' own grids, equal traces, poses and
+    volumes, and the captured fit's ``fit`` span counts pull, push and
+    pull_grad launches in its replays."""
+    from unires_torch.utils import trace
+
+    vol = brain_phantom(seed=0)[66:114, 80:136, 66:114]
+    rng = np.random.default_rng(6)
+    chans = []
+    for rp in ([1.2, -0.8, 0.5, 0.015, -0.01, 0.012],
+               [-1.0, 0.7, -0.6, -0.012, 0.01, -0.015]):
+        po = proj_info(vol.shape, np.eye(4), vol.shape, np.eye(4),
+                       rigid=affine_matrix_classic(rp))
+        x = unires_torch.proj_apply("A", torch.from_numpy(vol), po,
+                                    "denoising").numpy()
+        chans.append([x + rng.normal(0.0, 75.0, x.shape).astype(np.float32),
+                      np.eye(4)])
+    init = unires_torch.init(chans, unires_torch.Settings(
+        device="cuda", vx=0, do_coreg=False, unified_rigid=True,
+        scaling=True, do_print=0, max_iter=6, chunk_iters=4, tolerance=0,
+        write_out=False))
+    assert init[2].method == "denoising" and not init[2].scaling
+    runs = {}
+    for captured in (True, False):
+        x, y, s = copy.deepcopy(init)
+        n0 = (tr.pull.launches, tr.push.launches)
+        out = fit(x, y, s, capture=captured)
+        span = trace.spans("fit")[-1]
+        runs[captured] = (x, out, span.attrs, (tr.pull.launches - n0[0],
+                                               tr.push.launches - n0[1]))
+    (xa, a, attrs, launched), (xb, b, _, _) = runs[True], runs[False]
+    assert attrs["method"] == "denoising" and attrs["n_iter"] == [6]
+    assert attrs["resamples"] >= sum(launched) and min(launched) >= 6
+    np.testing.assert_array_equal(a[3], b[3])
+    qa = np.stack([o.rigid_q for xc in xa for o in xc])
+    np.testing.assert_array_equal(
+        qa, np.stack([o.rigid_q for xc in xb for o in xc]))
+    assert np.abs(qa).max() > 0.05  # the poses moved
+    assert [o.po.scl for xc in xa for o in xc] == [0.0, 0.0]
+    assert all(torch.equal(ca.dat, cb.dat) for ca, cb in zip(a[0], b[0]))
+
+
 def _batch_maps(B, seed):
     rng = np.random.default_rng(seed)
     out = []

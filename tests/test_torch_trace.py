@@ -303,3 +303,32 @@ def test_fortran_ordered_input_gives_the_same_init(chans):
         assert a.dat.is_contiguous() and b.dat.is_contiguous()
         assert torch.equal(a.dat, b.dat) and a.tau == b.tau
     np.testing.assert_array_equal(sc.mat_coreg, sf.mat_coreg)
+
+
+@pytest.mark.parametrize("first_before_mark", [True, False])
+def test_launches_since_sums_each_group_from_one_read(first_before_mark,
+                                                      monkeypatch):
+    """``cuda_build.launches_since`` over named groups of counted kernels:
+    each group's launches since ``launch_marks``, a kernel first launched
+    after the mark counted from 0, and all of them from one read of the
+    device (one ``tolist``). The device counters stand in as CPU tensors."""
+    from unires_torch.ops import cuda_build
+
+    fns = [cuda_build.Counted(lambda: None) for _ in range(3)]
+    groups = {"a": fns[:2], "b": fns[2:]}
+    for f, n in zip(fns, (5, 7, 11)):
+        if first_before_mark or f is not fns[1]:
+            f.count._dev[0] = torch.tensor([n, 0])
+    marks = cuda_build.launch_marks(groups)
+    for f, n in zip(fns, (3, 4, 2)):
+        t = f.count._dev.setdefault(0, torch.zeros(2, dtype=torch.int64))
+        t[0] += n
+    reads = []
+    tolist = torch.Tensor.tolist
+    monkeypatch.setattr(torch.Tensor, "tolist",
+                        lambda self: reads.append(1) or tolist(self))
+    assert cuda_build.launches_since(groups, marks) == {"a": 7, "b": 2}
+    assert len(reads) == 1
+    assert cuda_build.launches_since(
+        {"a": fns[:2]}, cuda_build.launch_marks({"a": fns[:2]})) == {"a": 0}
+    assert cuda_build.launches_since({}, {}) == {}

@@ -173,13 +173,14 @@ class KernelCount:
 
     def mark(self) -> dict:
         """The device counters as they stand, copied on the device (no
-        wait): the start of a :meth:`since`."""
+        wait): the start of a :meth:`deltas`."""
         return {k: t.clone() for k, t in self._dev.items()}
 
-    def since(self, mark: dict) -> int:
-        """Launches counted since ``mark`` (waits for the device)."""
-        return sum(int(t[0] - mark[k][0]) if k in mark else int(t[0])
-                   for k, t in self._dev.items())
+    def deltas(self, mark: dict) -> dict:
+        """{device index: launches counted since ``mark``}, as device
+        tensors (no wait)."""
+        return {k: t[0] - mark[k][0] if k in mark else t[0]
+                for k, t in self._dev.items()}
 
     def set(self, i: int, value: int) -> None:
         for t in self._dev.values():
@@ -202,6 +203,31 @@ class Counted:
                         lambda self, v: self.count.set(0, v))
     fov_launches = property(lambda self: self.count.read(1),
                             lambda self, v: self.count.set(1, v))
+
+
+def launch_marks(groups: dict) -> dict:
+    """The device counters of each named group of :class:`Counted` kernels
+    (``{name: kernels}``) as they stand, copied on the device (no wait):
+    the start of a :func:`launches_since`."""
+    return {name: [f.count.mark() for f in fns]
+            for name, fns in groups.items()}
+
+
+def launches_since(groups: dict, marks: dict) -> dict:
+    """``{name: launches}`` of each group since :func:`launch_marks` gave
+    ``marks``, on every device, from one read of each device (it waits for
+    the device); 0 where no kernel of a group has launched."""
+    parts = {}  # device index -> [(group, launches as a device tensor)]
+    for name, fns in groups.items():
+        for f, mark in zip(fns, marks[name]):
+            for k, n in f.count.deltas(mark).items():
+                parts.setdefault(k, []).append((name, n))
+    out = dict.fromkeys(groups, 0)
+    for items in parts.values():
+        counts = torch.stack([n for _, n in items]).tolist()
+        for (name, _), n in zip(items, counts):
+            out[name] += n
+    return out
 
 
 def check_size(*dims) -> None:

@@ -26,8 +26,8 @@ one factor or one per volume shaped to broadcast (a 0-d or (B, 1, ...)
 tensor), multiplied in last as ``scale * result``; the kernel reads it from
 device memory, so it may change between the replays of a captured graph.
 Each counts its kernel's launches on the device (``im_gradient.launches``,
-``im_divergence.launches``, ``DtD.launches``; :func:`stencil_marks` /
-:func:`stencil_launches_since`).
+``im_divergence.launches``, ``DtD.launches``; :data:`STENCILS` for
+``cuda_build.launch_marks`` / ``launches_since``).
 """
 from __future__ import annotations
 
@@ -191,14 +191,3 @@ im_gradient = Counted(im_gradient)
 im_divergence = Counted(im_divergence)
 DtD = Counted(DtD)
 STENCILS = (im_gradient, im_divergence, DtD)
-
-
-def stencil_marks() -> list:
-    """The stencil kernels' device counters as they stand (no wait)."""
-    return [f.count.mark() for f in STENCILS]
-
-
-def stencil_launches_since(marks: list) -> int:
-    """The stencil kernels' launches since :func:`stencil_marks` gave
-    ``marks``, on every device (waits for the devices)."""
-    return sum(f.count.since(m) for f, m in zip(STENCILS, marks))

@@ -16,7 +16,8 @@ through the kernel (or an error). There is no fallback from one to the other.
 Each wrapper counts its kernel launches in ``pull.launches`` /
 ``push.launches`` / ``pull_grad.launches``, and pull and push those of the
 kernels' ``fov`` instantiation also in ``pull.fov_launches`` /
-``push.fov_launches``.
+``push.fov_launches``; :data:`RESAMPLES` for ``cuda_build.launch_marks``
+/ ``launches_since``.
 
 Batches: every wrapper also takes a leading batch axis, volumes (B, X, Y,
 Z) with maps (B, 3, 4) (push: plans (B, :data:`PLAN_SIZE`)), and gives
@@ -595,3 +596,4 @@ def pull_grad(vol: torch.Tensor, M, out_dim) -> torch.Tensor:
 
 
 pull_grad = Counted(pull_grad)
+RESAMPLES = (pull, push, pull_grad)

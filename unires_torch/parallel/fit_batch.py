@@ -30,8 +30,9 @@ import numpy as np
 import torch
 
 from ..geometry import fov_centre, rigid_from_q
-from ..ops.finite_diff import stencil_launches_since, stencil_marks
-from ..pipeline.fit import _gather_subdats, _sync_state, chunk_len, get_sched
+from ..ops.cuda_build import launch_marks, launches_since
+from ..pipeline.fit import (COUNTED, _gather_subdats, _sync_state, chunk_len,
+                            get_sched)
 from ..solvers.fitloop import (init_state, make_batch_chunk, stack_states,
                                subject_state)
 from ..utils import trace
@@ -207,20 +208,21 @@ def fit_batch(xs, ys, sett, devices=None, capture=None):
     reads of all devices together: one per chunk per device.
 
     The call is a ``fit`` span (``utils.trace``) with the subjects' ids,
-    ``B``, each subject's ``n_iter``, the host reads (``syncs``) and the
-    finite-difference stencils' launches (``stencils``, one serving the
-    batch, read after the fit); each device's spans nest in it, on that
-    device's thread.
+    ``B``, each subject's ``n_iter``, the host reads (``syncs``), the
+    method (``method``) and the launches of the finite-difference stencils
+    (``stencils``) and of pull, push and pull_grad (``resamples``), a
+    batched launch serving the batch once, read after the fit; each
+    device's spans nest in it, on that device's thread.
     """
     B = len(xs)
     if B == 0:
         return []
     with trace.span("fit", ids=trace.subjects(ys) or None, B=B) as span:
-        syncs0, marks = to_host.syncs, stencil_marks()
+        syncs0, marks = to_host.syncs, launch_marks(COUNTED)
         results = _fit_batch(xs, ys, sett, devices, capture, span)
         span.attrs.update(n_iter=[r[-1] for r in results],
-                          syncs=to_host.syncs - syncs0,
-                          stencils=stencil_launches_since(marks))
+                          syncs=to_host.syncs - syncs0, method=sett.method,
+                          **launches_since(COUNTED, marks))
     return results
 
 

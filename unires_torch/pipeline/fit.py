@@ -27,8 +27,9 @@ import numpy as np
 import torch
 
 from ..geometry import fov_centre, rigid_from_q
-from ..ops.finite_diff import stencil_launches_since, stencil_marks
-from ..ops.resample import affine_to_M, pull
+from ..ops.cuda_build import launch_marks, launches_since
+from ..ops.finite_diff import STENCILS
+from ..ops.resample import RESAMPLES, affine_to_M, pull
 from ..solvers.admm import step_size
 from ..solvers.fitloop import FitState, init_state, make_fit_chunk
 from ..utils import trace
@@ -37,6 +38,9 @@ from ..utils.log import info
 from ..utils.plots import plot_convergence, require_matplotlib, show_slices
 from .checkpoint import load_checkpoint, restore_into, save_checkpoint
 from .structs import XData, YData
+
+# the kernel groups whose device launches a ``fit`` span reports
+COUNTED = {"stencils": STENCILS, "resamples": RESAMPLES}
 
 
 def get_gain(obj_trace) -> float:
@@ -327,15 +331,18 @@ def fit(x: XData, y: YData, sett, state: FitState = None, capture=None):
     fresh.
 
     The call is a ``fit`` span (``utils.trace``) with the subject's
-    ``n_iter``, its host reads (``syncs``, the capture's wait included) and
-    the finite-difference stencils' launches (``stencils``, read from the
-    device after the fit's own last read; 0 where the plain chain ran).
+    ``n_iter``, its host reads (``syncs``, the capture's wait included),
+    the method (``method``: "super-resolution" or "denoising") and the
+    launches of the finite-difference stencils (``stencils``) and of the
+    pull, push and pull_grad kernels (``resamples``), both read from the
+    device after the fit's own last read (0 where the plain versions ran).
     """
     with trace.span("fit", ids=trace.subjects([y]) or None, B=1) as span:
-        syncs0, marks = to_host.syncs, stencil_marks()
+        syncs0, marks = to_host.syncs, launch_marks(COUNTED)
         out = _fit(x, y, sett, state, capture)
         span.attrs.update(n_iter=[out[-1]], syncs=to_host.syncs - syncs0,
-                          stencils=stencil_launches_since(marks))
+                          method=sett.method,
+                          **launches_since(COUNTED, marks))
     return out
 
 

@@ -206,7 +206,9 @@ def fix_affine(x: XData, sett):
 
 def init(data, sett: Optional[Settings] = None):
     """Model initialiser (reference run.py:210-282). The subject gets a
-    new trace id (``utils.trace``), carried on its ``y`` structs."""
+    new trace id (``utils.trace``), carried on its ``y`` structs; the
+    ``init.grid`` span carries the method format_y chose (``method``) and
+    whether the fit projects (``proj``, ``Settings.do_proj``)."""
     sett = sett if sett is not None else Settings()
     get_device(sett)
     info(sett, "init")
@@ -226,8 +228,9 @@ def init(data, sett: Optional[Settings] = None):
             x = fix_affine(x, sett)
             x = resample_inplane(x, sett)
         x, sett = init_reg(x, sett)
-        with trace.span("init.grid"):
+        with trace.span("init.grid") as grid:
             y, sett = format_y(x, sett)
+            grid.attrs.update(method=sett.method, proj=bool(sett.do_proj))
         with trace.span("init.reslice"):
             x = proj_info_add(x, y, sett)
             y = init_y_dat(x, y, sett)

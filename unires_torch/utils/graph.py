@@ -196,11 +196,14 @@ def capture(fn: Callable[[], None]) -> "torch.cuda.CUDAGraph":
     the stream that should order it. ``graph.nodes`` is its node count,
     those of the conditional nodes' bodies included.
 
-    The capture first waits for the device and returns the memory of the
-    graphs that were freed to the device (``empty_cache``, as
-    ``torch.cuda.graph`` does: a capture may not free memory, so the pools
-    of a process's earlier fits would otherwise fill the card); that wait
-    counts as a host sync (``utils.host.to_host.syncs``).
+    The capture first waits for the device; that wait counts as a host sync
+    (``utils.host.to_host.syncs``). Where less than half the device's
+    memory is free, it then returns the memory of the graphs that were freed
+    to the device (``empty_cache``): a capture may not free memory, so the
+    pools of a process's earlier fits would otherwise fill the card. It
+    does not empty the cache before every capture, as ``torch.cuda.graph``
+    does: that frees and maps again a few hundred blocks a fit, whose
+    system time varies from one capture to the next by tenths of a second.
     """
     stream = _streams()[MAX_DEPTH]  # none is created while capturing
     dev = torch.cuda.current_device()
@@ -213,7 +216,9 @@ def capture(fn: Callable[[], None]) -> "torch.cuda.CUDAGraph":
     with _capture_lock, torch.cuda.stream(stream):
         torch.cuda.synchronize()
         to_host.syncs += 1
-        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        if free < total // 2:
+            torch.cuda.empty_cache()
         # thread_local: fit_batch drives one device per host thread
         graph.capture_begin(capture_error_mode="thread_local")
         torch._C._cuda_beginAllocateToPool(dev, bodies)
