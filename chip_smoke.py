@@ -38,7 +38,17 @@ Phases, each printing its lines:
    ``brainweb_common``) and as B = 2 strided channel views at the first,
    each bitwise equal to the plain zero-fill chain on the card, with its
    device ms, the plain chain's, and its bound (input read once, output
-   written once at 3.35 TB/s).
+   written once at 3.35 TB/s). Then the slice-profile blur
+   (``ops/conv.py``: ``blur_down_sep`` and its adjoint ``blur_up_sep``, one
+   launch a pass that is not a dirac axis) at the observations' upsampled
+   grids of ``brainweb_sr3`` (ratio (1, 1, 4)) and ``brainweb_common``
+   (ratio (2, 2, 5) after the atlas alignment, each thick axis) and as a
+   B = 2 batch at the first, each bitwise equal to the plain per-axis chain
+   on the card, with its device ms, the plain chain's, the library call's
+   (``conv3d`` / ``conv_transpose3d`` with a (K, 1, 1) kernel at stride
+   (r, 1, 1) a pass, TF32 off, held to the plain chain to 1e-5 of scale)
+   and its bound (each pass's input read once and output written once at
+   3.35 TB/s).
 4. Small slices, each fitted on the card and on the CPU (plain versions)
    with the objective traces compared: a pre-aligned 2-channel problem, and
    a misaligned one with co-registration, unified rigid and even/odd
@@ -48,7 +58,8 @@ Phases, each printing its lines:
    slices, first pre-aligned (init + fit, no GN updates), then as
    ``bench.py`` builds it (per-channel rigid misalignment, even/odd scaling
    0.1) through ``unires_torch.init`` (NMI co-registration) + fit with
-   unified rigid and scaling. Kernel launch counters (the stencils' too) are
+   unified rigid and scaling. Kernel launch counters (the stencils' and the
+   blur's too; each must be > 0 after the misaligned fit) are
    reset just before each run and read just after it (the kernels count
    their own launches on the device, those of a graph's replays included). Prints init / coreg
    seconds, s/iter, PSNR and sr_vs_trilinear (as bench.py), each channel's
@@ -129,7 +140,8 @@ Phases, each printing its lines:
    pose, is printed at that depth and held at 200 / 1e-8), against
    ``make_admm_step`` on the card. The counters are set to 0 just before
    each spatial step's iterations and read just after: each step must
-   launch pull and push, every launch through FOV = true.
+   launch pull and push, every launch through FOV = true; the SR step must
+   launch both blur passes, the denoising step none.
 
 The line before the last holds the kernels' JSON record (``launches`` from
 the misaligned run, ``launches_coreg`` the part of them inside its
@@ -141,6 +153,9 @@ phase 3; ``batch_ms`` and ``unbatched_x3_ms`` phase 3's batched launch of
 three volumes and the three unbatched launches, ``batch_bound_ms`` and
 ``batch_library_ms`` its bound and its library call with N = 3) and the
 stencils' record (phase 3's cases by ``entry/case``, each with its entry's
+``launches`` in the misaligned run and ``launches_converged`` in phase 9,
+both required > 0) and the blur's record (phase 3's cases by
+``direction/case``, each with its ``passes`` there and its direction's
 ``launches`` in the misaligned run and ``launches_converged`` in phase 9,
 both required > 0), the one
 before it the card's name and power limit; the last line
@@ -171,7 +186,8 @@ from unires_torch.geometry import (affine_basis, affine_diag,
                                    expm, rigid_log, voxel_size)
 from unires_torch.models.forward import obs_dyn_args, proj_apply
 from unires_torch.models.proj_op import proj_info
-from unires_torch.ops import cuda_build
+from unires_torch.kernels import kernel_1d
+from unires_torch.ops import conv, cuda_build
 from unires_torch.ops import finite_diff as fd
 from unires_torch.ops.resample import (_as_map, _fov_mask, _sample_coords,
                                        affine_to_M, pull, pull_grad,
@@ -799,6 +815,8 @@ def phase_kernels(device="cuda"):
         rec[name].update(_measure_batch(name, device))
     rec["stencils"] = {f"{e}/{c}": _measure_stencil(e, c, k, p, n)
                        for e, c, k, p, n in stencil_cases(device)}
+    rec["blurs"] = {f"{c[0]}/{c[1]}": _measure_blur(*c)
+                    for c in blur_cases(device)}
     return rec
 
 
@@ -863,6 +881,125 @@ def _measure_stencil(entry, case, kern, plain, n):
           f"{STENCIL_BYTES[entry] * n / (ms * 1e-3) / 1e9:.1f} GB/s | bound "
           f"{bnd:.4f} ms (bytes) | share {bnd / ms:.1%}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd)
+
+
+# the blur's geometries: (case, profiles, ratio, the upsampled grid dim_yx,
+# volumes) of brainweb_sr3's observations and of brainweb_common's after
+# the atlas alignment (tests/test_torch_blur.py pins both)
+BLUR_CASES = (("sr3", (-1, -1, 0), (1, 1, 4), (181, 217, 185), 1),
+              ("common_thick2", (2, 2, 0), (2, 2, 5), (369, 441, 230), 1),
+              ("common_thick1", (2, 0, 2), (2, 5, 2), (369, 275, 369), 1),
+              ("common_thick0", (0, 2, 2), (5, 2, 2), (230, 441, 369), 1),
+              ("batch2", (-1, -1, 0), (1, 1, 4), (181, 217, 185), 2))
+
+
+def _blur_shapes(kers, ratio, dim, up):
+    """Each pass's (input, output) voxels of one volume, axis by axis, as
+    the kernels run them (a dirac axis: no pass)."""
+    out, dim = [], list(dim)
+    for axis, (k, r) in enumerate(zip(kers, ratio)):
+        if k.shape[0] == 1 and r == 1 and k[0] == 1.0:
+            continue
+        n_in = int(np.prod(dim))
+        n = dim[axis]
+        K = k.shape[0]
+        dim[axis] = (n - 1) * r + K if up else (n - K) // r + 1
+        out.append((n_in, int(np.prod(dim))))
+    return out
+
+
+def _blur_library(dat, kers, ratio, up):
+    """One blur direction as PyTorch's library calls, one call a pass that
+    is not a dirac axis: ``conv3d`` with a (K, 1, 1) kernel at stride (r, 1,
+    1) down, ``conv_transpose3d`` up, along each axis in turn. Returns the
+    call; the weights are on the device before it."""
+    lead, passes = tuple(dat.shape[:-3]), []
+    for axis, (k, r) in enumerate(zip(kers, ratio)):
+        if k.shape[0] == 1 and r == 1 and k[0] == 1.0:
+            continue
+        shape, stride = [1] * 5, [1] * 3
+        shape[2 + axis], stride[axis] = k.shape[0], int(r)
+        passes.append((torch.from_numpy(k.reshape(shape)).to(dat.device),
+                       tuple(stride)))
+    fn = F.conv_transpose3d if up else F.conv3d
+
+    def call():
+        x = dat.reshape((-1, 1) + tuple(dat.shape[-3:]))
+        for w, stride in passes:
+            x = fn(x, w, stride=stride)
+        return x.reshape(lead + tuple(x.shape[2:]))
+    return call
+
+
+def blur_cases(device="cuda"):
+    """The blur cases of phase 3: (direction, case, kernel call, plain
+    call, passes' (input, output) voxels, volumes, library call); the down
+    pass from the upsampled grid, the up pass back to it, the plain call the
+    per-axis chain of ``ops/conv.py`` in PyTorch's ops, the library call
+    :func:`_blur_library`'s."""
+    rng = np.random.default_rng(6)
+    out = []
+    for case, prof, ratio, dim, B in BLUR_CASES:
+        kers = tuple(kernel_1d(p, float(r)).astype(np.float32)
+                     for p, r in zip(prof, ratio))
+        n_out = tuple((n - k.shape[0]) // r + 1
+                      for n, k, r in zip(dim, kers, ratio))
+        lead = (B,) if B > 1 else ()
+        u = torch.from_numpy(rng.standard_normal(lead + dim,
+                                                 dtype=np.float32)).to(device)
+        v = torch.from_numpy(rng.standard_normal(lead + n_out,
+                                                 dtype=np.float32)).to(device)
+        out += [("down", case,
+                 lambda u=u, k=kers, r=ratio: conv.blur_down_sep(u, k, r),
+                 lambda u=u, k=kers, r=ratio: conv.blur_down_plain(u, k, r),
+                 _blur_shapes(kers, ratio, dim, False), B,
+                 _blur_library(u, kers, ratio, False)),
+                ("up", case,
+                 lambda v=v, k=kers, r=ratio: conv.blur_up_sep(v, k, r),
+                 lambda v=v, k=kers, r=ratio: conv.blur_up_plain(v, k, r),
+                 _blur_shapes(kers, ratio, n_out, True), B,
+                 _blur_library(v, kers, ratio, True))]
+    return out
+
+
+def _measure_blur(direction, case, kern, plain, passes, B, library):
+    """One blur case of phase 3: bitwise against the plain chain, its
+    launches, its device ms beside the plain chain's, the library call's
+    (in float32: cuDNN's TF32 off, as ``pipeline.run.get_device`` sets it;
+    held to the plain chain to 1e-5 of its largest value) and its bound.
+    Prints a line and returns the record (``passes``: the case's launches,
+    one a pass)."""
+    torch.backends.cudnn.allow_tf32 = False
+    n0 = [f.launches for f in conv.BLURS]
+    got = kern()
+    torch.cuda.synchronize()
+    launches = sum(f.launches - n for f, n in zip(conv.BLURS, n0))
+    want = plain()
+    torch.cuda.synchronize()
+    label = f"{direction}/{case}"
+    require(got.shape == want.shape and torch.equal(
+        got.view(torch.int32), want.view(torch.int32)),
+        f"blur {label}: not bitwise the plain chain (max abs err "
+        f"{float((got - want).abs().max())})")
+    require(float(want.abs().max()) > 0.0, f"blur {label}: plain result is 0")
+    require(launches == len(passes), f"blur {label}: {launches} launches, "
+            f"{len(passes)} passes")
+    lib = library()
+    lib_err = float((lib - want).abs().max() / want.abs().max())
+    require(lib.shape == want.shape and lib_err <= 1e-5,
+            f"blur {label}: the library call is not the blur ({lib_err:.3e} "
+            f"of scale)")
+    ms, plain_ms, lib_ms = _time_ms(kern), _time_ms(plain), _time_ms(library)
+    nbytes = 4 * B * sum(a + b for a, b in passes)
+    bnd = 1e3 * nbytes / HBM_BYTES_PER_S
+    print(f"[kernels] blur {label} ({B} x {len(passes)} passes, "
+          f"{nbytes / 1e6:.1f} MB): bitwise | kernel {ms:.4f} ms | plain "
+          f"{plain_ms:.4f} ms ({plain_ms / ms:.2f}x) | library "
+          f"{lib_ms:.4f} ms (kernel / library {ms / lib_ms:.3f}, error "
+          f"{lib_err:.2e} of scale) | {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s "
+          f"| bound {bnd:.4f} ms (bytes) | share {bnd / ms:.1%}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+                passes=launches)
 
 
 def _degrade(gt, thick_axis, noise_sd, rng, device, rigid=None, scl=0.0):
@@ -1268,6 +1405,7 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
     fitloop.FitChunk._capture = capture
     syncs = (to_host.syncs - syncs0) / max(n_iter, 1)
     launches, stencils = _counts(), _stencil_counts()
+    blurs = _blur_counts()
     peak = torch.cuda.max_memory_allocated()
 
     n_coreg = coreg["launches"]
@@ -1286,6 +1424,8 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
             f"a kernel of the path never launched: {launches}")
     require(all(n > 0 for n in stencils.values()),
             f"a stencil of the path never launched: {stencils}")
+    require(all(n > 0 for n in blurs.values()),
+            f"a blur pass of the path never launched: {blurs}")
     _check_fit(dat_y, y, obj, jtv, n_iter, max_iter)
     fig = _figures(inputs, x, y, sett, obj, n_iter, gts[0], tri, device)
     _check_vs_jax("bench", fig, converged=False)
@@ -1303,7 +1443,7 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
           f"{peak_init / 2 ** 30:.3f} GiB (host loop: "
           f"{HOST_LOOP['init_peak']}), all {peak / 2 ** 30:.3f} GiB | host "
           f"syncs/iter {syncs:.3f} (host loop: {HOST_LOOP['syncs']}) | "
-          f"launches {launches}, stencils {stencils}")
+          f"launches {launches}, stencils {stencils}, blurs {blurs}")
     print(f"[bench] fitted scl {scl} (simulated 0.1)")
     for c in range(3):
         inv_true = np.linalg.inv(rigids[c])
@@ -1353,7 +1493,7 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
           f"seconds captured {coreg['s']:.3f}, uncaptured {t_u:.3f} | host "
           f"syncs captured {coreg['syncs']}, uncaptured {syncs_u}")
     require(same, "the captured coreg's mat_a differs from the uncaptured")
-    return launches, n_coreg, stencils
+    return launches, n_coreg, stencils, blurs
 
 
 def _residual(mat, true):
@@ -1560,10 +1700,16 @@ def _stencil_counts():
             "membrane": fd.DtD.launches}
 
 
+def _blur_counts():
+    """The blur passes' launches, by phase 3's direction names."""
+    return {"down": conv.blur_down_sep.launches,
+            "up": conv.blur_up_sep.launches}
+
+
 def _reset_counts():
     pull.launches = push.launches = pull_grad.launches = 0
     pull.fov_launches = push.fov_launches = 0
-    for f in fd.STENCILS:
+    for f in fd.STENCILS + conv.BLURS:
         f.launches = 0
 
 
@@ -1896,6 +2042,7 @@ def phase_converged(smi, device="cuda", dim=DIM_Y):
     fitloop.FitChunk._capture = capture
     syncs = (to_host.syncs - syncs0) / max(n_iter, 1)
     launches, stencils = _counts(), _stencil_counts()
+    blurs = _blur_counts()
     peak = torch.cuda.max_memory_allocated()
     fig = _figures(inputs, x, y, sett, obj, n_iter, gts[0], tri, device)
     psnr, ratio = fig["psnr"], fig["sr_vs_trilinear"]
@@ -1910,10 +2057,12 @@ def phase_converged(smi, device="cuda", dim=DIM_Y):
           f"sr_vs_trilinear {ratio:.4f} (host loop: {HOST_LOOP['ratio']}, "
           f"{ratio - HOST_LOOP['ratio']:+.4f}) | peak mem "
           f"{peak / 2 ** 30:.3f} GiB | launches {launches}, stencils "
-          f"{stencils}")
+          f"{stencils}, blurs {blurs}")
     require(n_iter < sett.max_iter, f"no convergence in {n_iter} iterations")
     require(all(n > 0 for n in stencils.values()),
             f"a stencil of the converged fit never launched: {stencils}")
+    require(all(n > 0 for n in blurs.values()),
+            f"a blur pass of the converged fit never launched: {blurs}")
     require(bool(torch.isfinite(jtv).all()) and np.isfinite(R).all(),
             "non-finite result")
     steps = _sched_steps(fig["nll"])
@@ -1924,7 +2073,7 @@ def phase_converged(smi, device="cuda", dim=DIM_Y):
     _check_vs_jax("converged", fig, converged=True)
     require(psnr >= PSNR_FLOOR and ratio <= RATIO_CEIL,
             f"quality floor missed: psnr {psnr} dB, sr_vs_trilinear {ratio}")
-    return launches, stencils
+    return launches, stencils, blurs
 
 
 def _rel(a, b):
@@ -2027,6 +2176,7 @@ def phase_parallel(tmp, smi, device="cuda", dim=DIM_Y, iters=3):
         got, s_sr = _run_steps(step_sr, st, (xdat, M, Minv, [0.0] * C, tau,
                                              lam, rho), iters)
         launches = {"SR": (_counts(), _fov_counts())}
+        blurs = {"SR": _blur_counts()}
         _step_diff(got, want, SLAB_TOL, "spatial SR (1 slab)")
 
         # the denoising chain: observations on the recon grid at a shift
@@ -2064,6 +2214,7 @@ def phase_parallel(tmp, smi, device="cuda", dim=DIM_Y, iters=3):
         _reset_counts()
         got, s_den = _run_steps(step_den, (ys, z, w), slab_args, iters)
         launches["denoising"] = (_counts(), _fov_counts())
+        blurs["denoising"] = _blur_counts()
         _step_diff(got, want_d, SLAB_TOL,
                    f"spatial denoising (1 slab) at CG {sett_d.cgs_max_iter} "
                    f"/ {sett_d.cgs_tol:g}")
@@ -2072,12 +2223,18 @@ def phase_parallel(tmp, smi, device="cuda", dim=DIM_Y, iters=3):
             require(all(n[k] > 0 and n_fov[k] == n[k] for k in n_fov),
                     f"spatial {label}: pull and push must each launch, all "
                     f"through FOV = true: launches {n}, FOV = true {n_fov}")
+        # the SR step blurs through the kernels; the denoising one has no blur
+        require(all(n > 0 for n in blurs["SR"].values())
+                and not any(blurs["denoising"].values()),
+                f"spatial blur launches {blurs}: SR must launch both passes, "
+                f"denoising none")
         peak = torch.cuda.max_memory_allocated()
         print(f"[parallel] {smi} | {C} x {dim_y}, {iters} iterations, s/iter: "
               f"make_admm_step SR {s_ref:.4f}, sharded {s_sh:.4f}, spatial "
               f"SR {s_sr:.4f} | make_admm_step denoising {s_ref_d:.4f}, "
               f"spatial denoising {s_den:.4f} | launches (all, FOV = true) "
-              f"{launches} | peak mem {peak / 2 ** 30:.3f} GiB")
+              f"{launches}, blurs {blurs} | peak mem "
+              f"{peak / 2 ** 30:.3f} GiB")
     finally:
         dist.destroy_process_group()
     return {k: (sum(n[k] for n, _ in launches.values()),
@@ -2092,13 +2249,14 @@ def main():
     phase_small_slice()
     phase_small_misaligned()
     phase_slice()
-    launches, launches_coreg, stencils = phase_misaligned()
+    launches, launches_coreg, stencils, blurs = phase_misaligned()
     with tempfile.TemporaryDirectory() as tmp:
         launches_atlas = phase_atlas(tmp)
         phase_ct_inplane(tmp)
         phase_cli(tmp)
         launches_batch = phase_long_runs(tmp)
-        launches_converged, stencils_converged = phase_converged(smi)
+        launches_converged, stencils_converged, blurs_converged = (
+            phase_converged(smi))
         launches_parallel = phase_parallel(tmp, smi)
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], launches=launches[name],
@@ -2114,7 +2272,12 @@ def main():
         entry = label.split("/")[0]
         r.update(launches=stencils[entry],
                  launches_converged=stencils_converged[entry])
-    print(json.dumps({"kernels": kernels, "stencils": rec["stencils"]}))
+    for label, r in rec["blurs"].items():
+        direction = label.split("/")[0]
+        r.update(launches=blurs[direction],
+                 launches_converged=blurs_converged[direction])
+    print(json.dumps({"kernels": kernels, "stencils": rec["stencils"],
+                      "blurs": rec["blurs"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,9 @@ launch of ``KERNEL_BATCH`` volumes at the fit's shapes, as this tree's
 ``chip_smoke.batch_case`` makes them, where the tree has them, then pull at
 the misaligned bench fit's own maps, as this tree's
 ``chip_smoke.bench_pull_cases`` makes them, then the finite-difference
-stencils of ``chip_smoke.stencil_cases`` where the tree has them, each beside
-the plain zero-fill chain it replaced) it prints the max abs difference
+stencils of ``chip_smoke.stencil_cases`` and the blur's passes of
+``chip_smoke.blur_cases`` where the tree has them, each beside the plain
+chain it replaced) it prints the max abs difference
 between kernel and plain version (must be 0), the kernel's device ms per
 call three times, and its host ms. A tree whose kernels read
 their maps from device memory (``ops.resample.push_plan`` exists) is given
@@ -97,6 +98,13 @@ def main():
         err = float((kern() - plain()).abs().max())
         report(cs, args.label, f"stencil {entry}/{case}", kern, err, "device")
         report(cs, args.label, f"plain chain {entry}/{case}", plain, 0.0,
+               "device")
+    for direction, case, kern, plain, *_ in (cs.blur_cases("cuda") if hasattr(
+            cs, "blur_cases") else ()):
+        err = float((kern() - plain()).abs().max())
+        report(cs, args.label, f"blur {direction}/{case}", kern, err,
+               "device")
+        report(cs, args.label, f"plain chain {direction}/{case}", plain, 0.0,
                "device")
 
 

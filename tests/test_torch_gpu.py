@@ -991,3 +991,172 @@ def test_stencils_dispatch_by_type_layout_and_difference(cuda):
     assert [f.launches for f in fd.STENCILS] == n0
     with pytest.raises(ValueError):
         fd.DtD(v, vx, scale=torch.ones(5, 1, 1, device=cuda))
+
+
+# the slice-profile blur's passes (ops/conv.py): (profiles, ratio, dim_yx)
+# of brainweb_sr3's observations (the thick axis on each axis) and of
+# brainweb_common's after the atlas alignment (tests/test_torch_blur.py pins
+# both), and small ones with sizes off the kernel's 256-thread blocks
+BLUR_CASES = {
+    "sr3_thick2": ((-1, -1, 0), (1, 1, 4), (181, 217, 185)),
+    "sr3_thick1": ((-1, 0, -1), (1, 4, 1), (181, 221, 181)),
+    "sr3_thick0": ((0, -1, -1), (4, 1, 1), (185, 217, 181)),
+    "common_thick2": ((2, 2, 0), (2, 2, 5), (369, 441, 230)),
+    "common_thick1": ((2, 0, 2), (2, 5, 2), (369, 275, 369)),
+    "common_thick0": ((0, 2, 2), (5, 2, 2), (230, 441, 369)),
+    "small": ((2, 1, 0), (2, 3, 5), (13, 9, 21)),
+    "tiny": ((0, 2, 1), (4, 2, 3), (5, 9, 7)),
+}
+
+
+def _blur_case(name):
+    from unires_torch.kernels import kernel_1d
+
+    prof, ratio, dim = BLUR_CASES[name]
+    kers = tuple(kernel_1d(p, float(r)).astype(np.float32)
+                 for p, r in zip(prof, ratio))
+    n_out = tuple((n - k.shape[0]) // r + 1
+                  for n, k, r in zip(dim, kers, ratio))
+    # the up pass's grid: dim less the rows the down pass's stride skips
+    n_up = tuple((n - 1) * r + k.shape[0]
+                 for n, k, r in zip(n_out, kers, ratio))
+    return kers, ratio, dim, n_out, n_up
+
+
+def _blur_chain(dat, kers, ratio, up):
+    from unires_torch.ops import conv
+
+    return (conv.blur_up_plain if up else conv.blur_down_plain)(dat, kers,
+                                                                ratio)
+
+
+def _passes(kers, ratio):
+    return sum(not (k.shape[0] == 1 and r == 1 and k[0] == 1.0)
+               for k, r in zip(kers, ratio))
+
+
+@pytest.mark.parametrize("name", list(BLUR_CASES))
+def test_blur_passes_match_plain_chain(cuda, name):
+    """Both directions against the plain per-axis chain on the card, bit
+    for bit (-0.0 and denormals included); one count per pass that is not
+    a dirac axis; the adjoint identity to float32 rounding."""
+    from unires_torch.ops import conv
+
+    kers, ratio, dim, n_out, n_up = _blur_case(name)
+    u = _stencil_vol(dim, 31, cuda)
+    v = _stencil_vol(n_out, 32, cuda)
+    n0 = [f.launches for f in conv.BLURS]
+    down = conv.blur_down_sep(u, kers, ratio)
+    up = conv.blur_up_sep(v, kers, ratio)
+    torch.cuda.synchronize()
+    n = _passes(kers, ratio)
+    assert [f.launches - m for f, m in zip(conv.BLURS, n0)] == [n, n]
+    want_down = _blur_chain(u, kers, ratio, False)
+    want_up = _blur_chain(v, kers, ratio, True)
+    assert down.shape == n_out and up.shape == n_up
+    assert float(want_up.abs().max()) > 0
+    assert torch.equal(_bits(down), _bits(want_down))
+    assert torch.equal(_bits(up), _bits(want_up))
+    # <A u, v> = <u, A^T v> over the rows that the down pass reads
+    u = u[tuple(slice(0, n) for n in n_up)]
+    lhs = float((conv.blur_down_sep(u.contiguous(), kers, ratio).double()
+                 * v.double()).sum())
+    rhs = float((u.double() * up.double()).sum())
+    assert abs(lhs - rhs) <= 1e-5 * max(abs(lhs), abs(rhs))
+
+
+@pytest.mark.parametrize("name", ["sr3_thick2", "common_thick1", "small"])
+def test_blur_batch_of_strided_volumes(cuda, name):
+    """B = 2 volumes a stride apart (a channel of a stacked (B, C, ...)
+    tensor), as the batched fit passes them: one launch per pass, bitwise
+    the plain chain and each volume's own launches."""
+    from unires_torch.ops import conv
+
+    kers, ratio, dim, n_out, _ = _blur_case(name)
+    u = _stencil_vol((2, 3) + dim, 33, cuda)[:, 1]
+    v = _stencil_vol((2, 2) + n_out, 34, cuda)[:, 0]
+    n0 = [f.launches for f in conv.BLURS]
+    got = [conv.blur_down_sep(u, kers, ratio),
+           conv.blur_up_sep(v, kers, ratio)]
+    torch.cuda.synchronize()
+    n = _passes(kers, ratio)
+    assert [f.launches - m for f, m in zip(conv.BLURS, n0)] == [n, n]
+    want = [_blur_chain(u, kers, ratio, False), _blur_chain(v, kers, ratio,
+                                                            True)]
+    one = [torch.stack([conv.blur_down_sep(u[b], kers, ratio)
+                        for b in range(2)]),
+           torch.stack([conv.blur_up_sep(v[b], kers, ratio)
+                        for b in range(2)])]
+    for a, b, c in zip(got, want, one):
+        assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a),
+                                                               _bits(c))
+
+
+def test_blur_dirac_axes_and_dispatch(cuda):
+    """A single tap of 1 at ratio 1 on every axis launches nothing and
+    returns the input; a single tap of another value is one multiply a
+    pass. A CUDA tensor launches the kernel or raises: float64 TypeError, a
+    volume that is not C-contiguous, leading axes that no one batch stride
+    describes or a down pass along an axis shorter than its taps
+    ValueError."""
+    from unires_torch.ops import conv
+
+    one = (np.ones(1, np.float32),) * 3
+    v = _stencil_vol((5, 6, 7), 35, cuda)
+    n0 = [f.launches for f in conv.BLURS]
+    assert conv.blur_down_sep(v, one, (1, 1, 1)) is v
+    assert conv.blur_up_sep(v, one, (1, 1, 1)) is v
+    torch.cuda.synchronize()
+    assert [f.launches for f in conv.BLURS] == n0
+    half = (np.ones(1, np.float32), np.full(1, 0.37, np.float32),
+            np.ones(1, np.float32))
+    got = [conv.blur_down_sep(v, half, (1, 1, 1)),
+           conv.blur_up_sep(v, half, (1, 1, 1))]
+    torch.cuda.synchronize()
+    assert [f.launches - m for f, m in zip(conv.BLURS, n0)] == [1, 1]
+    for g in got:
+        assert torch.equal(_bits(g), _bits(v * float(half[1][0])))
+    kers, ratio, dim, _, _ = _blur_case("small")
+    u = _stencil_vol(dim, 36, cuda)
+    n0 = [f.launches for f in conv.BLURS]
+    for fn in (conv.blur_down_sep, conv.blur_up_sep):
+        with pytest.raises(TypeError):
+            fn(u.double(), kers, ratio)
+        with pytest.raises(ValueError):
+            fn(u.transpose(0, 2), kers, ratio)
+        with pytest.raises(ValueError, match="batch stride"):
+            fn(_stencil_vol((2, 2) + dim, 37, cuda).transpose(0, 1), kers,
+               ratio)
+    # the first axis's 9 taps over 3 rows: no VALID output
+    with pytest.raises(ValueError, match="fewer than"):
+        conv.blur_down_sep(_stencil_vol((3,) + dim[1:], 38, cuda), kers,
+                           ratio)
+    torch.cuda.synchronize()
+    assert [f.launches for f in conv.BLURS] == n0
+
+
+def test_captured_blur_counts_its_replays(cuda):
+    """AᵀA's blur (down, then up) captured in a CUDA graph replays bitwise
+    the plain chain, and each replay counts each pass."""
+    from unires_torch.ops import conv
+    from unires_torch.utils.graph import capture
+
+    kers, ratio, dim, _, n_up = _blur_case("common_thick2")
+    u = _stencil_vol(dim, 38, cuda)
+    out = torch.empty(n_up, device=cuda)
+
+    def body():
+        out.copy_(conv.blur_up_sep(conv.blur_down_sep(u, kers, ratio), kers,
+                                   ratio))
+
+    body()
+    graph = capture(body)
+    for seed in (39, 40):
+        u.copy_(_stencil_vol(dim, seed, cuda))
+        want = _blur_chain(_blur_chain(u, kers, ratio, False), kers, ratio,
+                           True)
+        n0 = [f.launches for f in conv.BLURS]
+        graph.replay()
+        torch.cuda.synchronize()
+        assert [f.launches - m for f, m in zip(conv.BLURS, n0)] == [3, 3]
+        assert torch.equal(_bits(out), _bits(want))

@@ -267,6 +267,7 @@ def test_one_chunk_span_a_chunk(chans, chunk_iters):
     assert fit.attrs["n_iter"] == [n_iter]
     assert fit.attrs["syncs"] == syncs > 0
     assert fit.attrs["stencils"] == 0  # the plain chain on the CPU
+    assert fit.attrs["blurs"] == 0
     assert fit.ids == (trace.subject(y),)
 
 

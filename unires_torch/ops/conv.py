@@ -13,11 +13,32 @@ Semantics (pinned by the reference, unires/_project.py:153-157):
     correlation with the kernel).
 ``blur_down`` / ``blur_up`` take the dense (non-separable) kernel instead,
 one strided slice per kernel tap, for 2D or 3D volumes.
+
+Two implementations of the separable pair. The plain one
+(``blur_down_plain`` / ``blur_up_plain``: ``_down_1d`` / ``_up_1d`` axis by
+axis) is what a CPU tensor takes. A
+CUDA tensor takes one hand-written launch per pass instead
+(``unires_torch/csrc/blur.cu``; the up pass gathers, with no zero-stuffed or
+padded intermediate), which reads its input once and writes its output once
+and rounds as the plain chain on the card does, so the two agree to the bit.
+A pass whose kernel is a single tap of 1 at ratio 1 (a dirac axis) launches
+nothing and returns its input. The kernels take float32 volumes, each
+C-contiguous, with any stride between the volumes of a batch; for any other
+CUDA tensor the functions raise (TypeError for the dtype, ValueError for
+the layout, or a down pass along an axis shorter than its taps), as the
+other kernel wrappers do. Each counts its passes'
+launches on the device (``blur_down_sep.launches``,
+``blur_up_sep.launches``; :data:`BLURS` for ``cuda_build.launch_marks`` /
+``launches_since``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .cuda_build import Counted, check, check_size, kernels, volume_batch
+
+MAX_TAPS = 64  # the most taps a pass of csrc/blur.cu takes (kMaxTaps)
 
 
 def _axis_slice(ndim: int, axis: int, sl: slice):
@@ -80,21 +101,78 @@ def _up_1d(dat: torch.Tensor, k: np.ndarray, r: int, axis: int) -> torch.Tensor:
     return out
 
 
+def _plain_sep(dat, kers_1d, ratio, one_d):
+    lead = dat.dim() - 3
+    for axis, (k, r) in enumerate(zip(kers_1d, ratio)):
+        dat = one_d(dat, np.asarray(k), int(r), lead + axis)
+    return dat
+
+
+def blur_down_plain(dat: torch.Tensor, kers_1d, ratio) -> torch.Tensor:
+    """:func:`blur_down_sep` as the plain per-axis chain, on any device."""
+    return _plain_sep(dat, kers_1d, ratio, _down_1d)
+
+
+def blur_up_plain(dat: torch.Tensor, kers_1d, ratio) -> torch.Tensor:
+    """:func:`blur_up_sep` as the plain per-axis chain, on any device."""
+    return _plain_sep(dat, kers_1d, ratio, _up_1d)
+
+
+def _kernel_sep(fn, entry: str, v: torch.Tensor, kers_1d, ratio,
+                up: bool) -> torch.Tensor:
+    """The passes of ``entry`` over the batch ``v`` (B, X, Y, Z), axis by
+    axis, each one launch counted in ``fn``'s launches (none for a dirac
+    axis)."""
+    lib = kernels.get()
+    dev = v.device
+    for axis, (k, r) in enumerate(zip(kers_1d, ratio)):
+        k = np.ascontiguousarray(k, dtype=np.float32).reshape(-1)
+        K, r = k.shape[0], int(r)
+        if K == 1 and r == 1 and k[0] == 1.0:
+            continue
+        if K > MAX_TAPS:
+            raise ValueError(f"{entry}: {K} taps, the kernel takes at most "
+                             f"{MAX_TAPS}")
+        dim = tuple(v.shape[1:])
+        n = dim[axis]
+        if not up and n < K:
+            raise ValueError(f"{entry}: axis {axis} has {n} voxels, fewer "
+                             f"than the {K} taps of a VALID pass")
+        m = (n - 1) * r + K if up else (n - K) // r + 1
+        out_dim = dim[:axis] + (m,) + dim[axis + 1:]
+        out = torch.empty((v.shape[0],) + out_dim, dtype=torch.float32,
+                          device=dev)
+        check_size(dim, out_dim)
+        with torch.cuda.device(dev):
+            err = getattr(lib, entry)(
+                v.data_ptr(), out.data_ptr(), int(np.prod(dim[:axis])), n,
+                int(np.prod(dim[axis + 1:])), r, k.ctypes.data, K,
+                v.shape[0], v.stride(0), fn.count.ptr(dev),
+                torch.cuda.current_stream().cuda_stream)
+        check(err, entry)
+        v = out
+    return v
+
+
 def blur_down_sep(dat: torch.Tensor, kers_1d, ratio) -> torch.Tensor:
     """Separable strided blur: per-axis polyphase passes over the last three
     axes (leading axes, a batch of volumes, ride along)."""
-    lead = dat.dim() - 3
-    for axis, (k, r) in enumerate(zip(kers_1d, ratio)):
-        dat = _down_1d(dat, np.asarray(k), int(r), lead + axis)
-    return dat
+    v = volume_batch(dat, 3, "blur_down_sep")
+    if v is None:
+        return blur_down_plain(dat, kers_1d, ratio)
+    out = _kernel_sep(blur_down_sep, "unires_blur_down", v, kers_1d, ratio,
+                      up=False)
+    return dat if out is v else out.view(dat.shape[:-3] + out.shape[1:])
 
 
 def blur_up_sep(dat: torch.Tensor, kers_1d, ratio) -> torch.Tensor:
     """Exact adjoint of :func:`blur_down_sep`."""
-    lead = dat.dim() - 3
-    for axis, (k, r) in enumerate(zip(kers_1d, ratio)):
-        dat = _up_1d(dat, np.asarray(k), int(r), lead + axis)
-    return dat
+    v = volume_batch(dat, 3, "blur_up_sep")
+    if v is None:
+        return blur_up_plain(dat, kers_1d, ratio)
+    out = _kernel_sep(blur_up_sep, "unires_blur_up", v, kers_1d, ratio,
+                      up=True)
+    return dat if out is v else out.view(dat.shape[:-3] + out.shape[1:])
 
 
 def _tap_slices(ker_shape, ratio, n_out):
@@ -130,3 +208,8 @@ def blur_up(dat: torch.Tensor, ker, ratio) -> torch.Tensor:
     for t, sl in _tap_slices(ker.shape, ratio, tuple(dat.shape)):
         out[sl] += float(ker[t]) * dat
     return out
+
+
+blur_down_sep = Counted(blur_down_sep)
+blur_up_sep = Counted(blur_up_sep)
+BLURS = (blur_down_sep, blur_up_sep)

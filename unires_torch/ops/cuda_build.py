@@ -40,7 +40,12 @@ _F = ctypes.c_float
 # the stencils of csrc/finite_diff.cu: input, output, scale, its stride,
 # (nx, ny, nz), batch, the batch's stride, 1 / vx, counter, stream
 _STENCIL = [_VP] * 3 + [_I] * 5 + [_LL] + [_F] * 3 + [_VP, _VP]
-# C signatures of csrc/resample.cu, csrc/finite_diff.cu and csrc/graph.cu
+# the passes of csrc/blur.cu: input, output, (pre, n, nq) of its volumes, r,
+# the taps (host floats) and their count, batch, the batch's stride,
+# counter, stream
+_BLUR = [_VP, _VP] + [_I] * 4 + [_VP, _I, _I, _LL, _VP, _VP]
+# C signatures of csrc/resample.cu, csrc/finite_diff.cu, csrc/blur.cu and
+# csrc/graph.cu
 # (every pointer and the stream as c_void_p, so that ctypes never truncates
 # a 64-bit address)
 _SIGNATURES = {
@@ -53,6 +58,8 @@ _SIGNATURES = {
     "unires_fd_gradient": _STENCIL,
     "unires_fd_divergence": _STENCIL,
     "unires_fd_membrane": _STENCIL,
+    "unires_blur_down": _BLUR,
+    "unires_blur_up": _BLUR,
     "unires_if_begin": [_VP] * 4,
     "unires_if_end": [_VP, _VP],
     "unires_while_begin": [_VP] * 5,
@@ -228,6 +235,31 @@ def launches_since(groups: dict, marks: dict) -> dict:
         for (name, _), n in zip(items, counts):
             out[name] += n
     return out
+
+
+def volume_batch(t: torch.Tensor, nd: int, name: str):
+    """``t`` (..., volume of ``nd`` axes) viewed as a kernel's batch (B,
+    ...), or None for a CPU tensor, which takes the plain version. Raises
+    for a CUDA tensor the kernels do not take: not float32 (TypeError), a
+    volume not C-contiguous, or leading axes that no single stride
+    describes (ValueError)."""
+    if t.device.type == "cpu":
+        return None
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    if t.dim() < nd or t.numel() == 0:
+        raise ValueError(f"{name}: expected non-empty volumes of {nd} axes, "
+                         f"got {tuple(t.shape)}")
+    if not t[(0,) * (t.dim() - nd)].is_contiguous():
+        raise ValueError(f"{name}: the kernel needs contiguous volumes")
+    try:
+        return t.view((-1,) + tuple(t.shape[-nd:]))
+    except RuntimeError:
+        raise ValueError(f"{name}: the leading axes of {tuple(t.shape)} "
+                         f"(strides {t.stride()}) do not fold into one "
+                         f"batch stride") from None
 
 
 def check_size(*dims) -> None:

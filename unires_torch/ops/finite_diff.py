@@ -34,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .cuda_build import Counted, check, check_size, kernels
+from .cuda_build import Counted, check, check_size, kernels, volume_batch
 
 
 def _roll_zero(u: torch.Tensor, shift: int, axis: int) -> torch.Tensor:
@@ -95,27 +95,12 @@ def _stencil_batch(t: torch.Tensor, which: str, nd: int, name: str):
     """``t`` (..., X, Y, Z) (nd = 3) or (..., 3, X, Y, Z) (nd = 4) viewed as
     the kernel's batch (B, ...), or None where the plain chain runs: a CPU
     tensor, or the 'backward' and 'central' differences. Raises for a CUDA
-    tensor the kernel does not take: not float32, a volume (a field) not
-    C-contiguous, or leading axes that no single stride describes."""
-    if t.device.type == "cpu" or which in ("backward", "central"):
+    tensor the kernel does not take (``cuda_build.volume_batch``)."""
+    if which in ("backward", "central"):
         return None
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {t.device}")
-    if which != "forward":
+    if which != "forward" and t.device.type != "cpu":
         raise ValueError(which)
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
-    if t.dim() < nd or t.numel() == 0:
-        raise ValueError(f"{name}: expected non-empty volumes of {nd} axes, "
-                         f"got {tuple(t.shape)}")
-    if not t[(0,) * (t.dim() - nd)].is_contiguous():
-        raise ValueError(f"{name}: the kernel needs contiguous volumes")
-    try:
-        return t.view((-1,) + tuple(t.shape[-nd:]))
-    except RuntimeError:
-        raise ValueError(f"{name}: the leading axes of {tuple(t.shape)} "
-                         f"(strides {t.stride()}) do not fold into one "
-                         f"batch stride") from None
+    return volume_batch(t, nd, name)
 
 
 def _launch(fn, entry: str, src: torch.Tensor, out: torch.Tensor, nd: int,

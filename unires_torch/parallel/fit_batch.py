@@ -210,8 +210,9 @@ def fit_batch(xs, ys, sett, devices=None, capture=None):
     The call is a ``fit`` span (``utils.trace``) with the subjects' ids,
     ``B``, each subject's ``n_iter``, the host reads (``syncs``), the
     method (``method``) and the launches of the finite-difference stencils
-    (``stencils``) and of pull, push and pull_grad (``resamples``), a
-    batched launch serving the batch once, read after the fit; each
+    (``stencils``), of pull, push and pull_grad (``resamples``) and of the
+    blur's passes (``blurs``), a batched launch serving the batch once, read
+    after the fit; each
     device's spans nest in it, on that device's thread.
     """
     B = len(xs)

@@ -32,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.proj_op import ProjOp
-from ..ops.conv import _down_1d, _up_1d
+from ..ops.conv import blur_down_sep, blur_up_sep
 from ..ops.finite_diff import _roll_zero
 from ..ops.resample import pull, push, push_window
 from ..ops.scaling import apply_scaling
@@ -511,16 +511,6 @@ def make_spatial_admm_step_sr(po: ProjOp, sett,
             return t * torch.exp(s * sgn)
         return apply_scaling(t, s, dim_thick)
 
-    def blur_down_loc(t):
-        for ax in range(3):
-            t = _down_1d(t, kers[ax], ratio[ax], ax)
-        return t
-
-    def blur_up_loc(t):
-        for ax in range(3):
-            t = _up_1d(t, kers[ax], ratio[ax], ax)
-        return t
-
     def step(ys, z, w, xdat, M, Minv, scl, tau, lam, rho):
         rho = float(rho)
         mp = slab_maps(M, Minv, dim_y, s_yx, x0y - H, s_yx - H2, x0y)
@@ -535,17 +525,18 @@ def make_spatial_admm_step_sr(po: ProjOp, sett,
                         fov=mp["fov_push"])
 
         def A_loc(yc, s):
-            return scale_loc(blur_down_loc(pull_loc(yc)), s)
+            return scale_loc(blur_down_sep(pull_loc(yc), kers, ratio), s)
 
         def y_update(yc, zc, wc, xc, sc, tc, lc):
-            rhs = tc * push_half(blur_up_loc(scale_loc(xc, sc)))
+            rhs = tc * push_half(blur_up_sep(scale_loc(xc, sc), kers, ratio))
             rhs = rhs - lc * halo_divergence(wc - rho * zc, vx_y, diff, mesh)
 
             def lhs(v):
                 out = rho * lc * lc * halo_divergence(
                     halo_gradient(v, vx_y, diff, mesh), vx_y, diff, mesh)
-                t = scale_loc(blur_down_loc(pull_loc(v)), 2.0 * sc)
-                return out + tc * push_half(blur_up_loc(t))
+                t = scale_loc(blur_down_sep(pull_loc(v), kers, ratio),
+                              2.0 * sc)
+                return out + tc * push_half(blur_up_sep(t, kers, ratio))
 
             P_slab = precond_factory(tc * ata1_mean, rho * lc * lc)
             return _pcg(lhs, rhs, yc, P_slab, psum, cg_iter, cg_tol)

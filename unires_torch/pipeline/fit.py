@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..geometry import fov_centre, rigid_from_q
+from ..ops.conv import BLURS
 from ..ops.cuda_build import launch_marks, launches_since
 from ..ops.finite_diff import STENCILS
 from ..ops.resample import RESAMPLES, affine_to_M, pull
@@ -40,7 +41,7 @@ from .checkpoint import load_checkpoint, restore_into, save_checkpoint
 from .structs import XData, YData
 
 # the kernel groups whose device launches a ``fit`` span reports
-COUNTED = {"stencils": STENCILS, "resamples": RESAMPLES}
+COUNTED = {"stencils": STENCILS, "resamples": RESAMPLES, "blurs": BLURS}
 
 
 def get_gain(obj_trace) -> float:
@@ -333,9 +334,10 @@ def fit(x: XData, y: YData, sett, state: FitState = None, capture=None):
     The call is a ``fit`` span (``utils.trace``) with the subject's
     ``n_iter``, its host reads (``syncs``, the capture's wait included),
     the method (``method``: "super-resolution" or "denoising") and the
-    launches of the finite-difference stencils (``stencils``) and of the
-    pull, push and pull_grad kernels (``resamples``), both read from the
-    device after the fit's own last read (0 where the plain versions ran).
+    launches of the finite-difference stencils (``stencils``), of the
+    pull, push and pull_grad kernels (``resamples``) and of the blur's
+    passes (``blurs``), each read from the device after the fit's own last
+    read (0 where the plain versions ran).
     """
     with trace.span("fit", ids=trace.subjects([y]) or None, B=1) as span:
         syncs0, marks = to_host.syncs, launch_marks(COUNTED)
