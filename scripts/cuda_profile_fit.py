@@ -6,17 +6,18 @@
 Builds the bench.py workload as ``chip_smoke.py`` phase 5 does (3 channels,
 181x217x181, 4 mm slices, rigid misalignment, even/odd scaling; coreg,
 unified rigid and scaling on), runs init, then the fit's stepper
-(``pipeline.fit.FitRun``): one chunk of ``first`` iterations (its warm-up
-and the graph's capture included), then a chunk of ``count`` iterations
-with ``torch.profiler`` (CPU and CUDA activities) around it, its one read of
-the host included. ``--uncaptured`` runs the chunk without a graph, each
-decision read on the host. Prints the window's wall time, the device's busy
-time (union of the device events' intervals), its idle share, host syncs
-per iteration, and the device time by kernel group, with launches and ms
-per launch for the port's three kernels. ``--batch B`` profiles B subjects
-(the workload at seeds 0 to B - 1, all on subject 0's grid) as one stacked
-chunk (``parallel.fit_batch.BatchRun``), as ``fit_batch`` runs a device's
-share, and also prints the graph's node count.
+(``pipeline.fit.FitStepper``, as ``FitRun``): one chunk of ``first``
+iterations (its warm-up and the graph's capture included), then a chunk of
+``count`` iterations with ``torch.profiler`` (CPU and CUDA activities)
+around it, its one read of the host included. ``--uncaptured`` runs the
+chunk without a graph, each decision read on the host. Prints the window's
+wall time, the device's busy time (union of the device events' intervals),
+its idle share, host syncs per iteration, and the device time by kernel
+group, with launches and ms per launch for the port's three kernels.
+``--batch B`` profiles B subjects (the workload at seeds 0 to B - 1, all on
+subject 0's grid) as one stacked chunk (the stepper as
+``parallel.fit_batch.BatchRun``), as ``fit_batch`` runs a device's share,
+and also prints the graph's node count.
 """
 import argparse
 import importlib
@@ -82,13 +83,10 @@ def main():
         from unires_torch.parallel.fit_batch import BatchRun
 
         xs, ys, setts = (list(t) for t in zip(*inits))
-        run = BatchRun(xs, ys, fit_mod.get_sched(
-            sum(len(xc) for xc in xs[0]), setts[0]),
-            capture=not args.uncaptured)
-        run.step(args.first)
+        run = BatchRun(xs, ys, setts[0], capture=not args.uncaptured)
     else:
         run = fit_mod.FitRun(*inits[0], capture=not args.uncaptured)
-        run.step(args.first)
+    run.step(args.first)
     if cap:
         print(f"[profile] warm-up + capture {cap['s']:.3f} s, graph nodes "
               f"{cap['nodes']}")

@@ -21,6 +21,8 @@ from phantoms import blob_phantom, degrade
 from unires_torch.parallel.fit_batch import (assign_devices, batch_devices,
                                              check_homogeneous, fit_batch)
 from unires_torch.pipeline.fit import fit as t_fit
+from unires_torch.solvers.fitloop import FitChunk
+from unires_torch.utils import trace
 from unires_tpu.parallel.fit_batch import fit_batch as j_fit_batch
 
 torch.set_num_threads(2)
@@ -179,6 +181,62 @@ def test_fit_batch_max_iter_0_returns_identities():
         np.testing.assert_array_equal(R, np.stack([np.eye(4)] * 2))
         assert all(torch.equal(c.dat, d) for c, d in zip(y, y0[b]))
     assert fit_batch([], [], sett) == []
+
+
+def _one_subject(form, **kw):
+    """Subject 0 fitted alone by ``pipeline.fit.fit`` (``form`` "fit")
+    or by ``fit_batch`` as a batch of one ("batch"): its init, the result
+    and the spans the fit opened."""
+    x, y, sett = unires_torch.init(copy.deepcopy(SUBJECTS[0]), _sett(**kw))
+    since = trace.serial()
+    res = t_fit(x, y, sett) if form == "fit" else fit_batch([x], [y],
+                                                              sett)[0]
+    return x, res, trace.spans(since=since)
+
+
+def test_a_batch_of_one_is_the_single_fit_bitwise():
+    """One subject through ``pipeline.fit.fit`` and through ``fit_batch``
+    alone run the same stepper over the same iteration: bitwise equal
+    volumes, rigid matrices, poses, scales, objective trace and ``n_iter``,
+    and spans of the same names and attribute keys."""
+    (xa, a, spans_a), (xb, b, spans_b) = (_one_subject(d)
+                                          for d in ("fit", "batch"))
+    assert all(torch.equal(ca.dat, cb.dat) for ca, cb in zip(a[0], b[0]))
+    np.testing.assert_array_equal(a[1], b[1])
+    np.testing.assert_array_equal(a[3], b[3])
+    assert a[4] == b[4] == 8 and a[3].shape == (8, 3)
+    for oa, ob in zip((o for xc in xa for o in xc),
+                      (o for xc in xb for o in xc)):
+        np.testing.assert_array_equal(oa.rigid_q, ob.rigid_q)
+        assert oa.po.scl == ob.po.scl
+    assert sorted((s.name, sorted(s.attrs)) for s in spans_a) == sorted(
+        (s.name, sorted(s.attrs)) for s in spans_b)
+    assert {s.name for s in spans_a} == {"fit", "fit.setup", "fit.chunk",
+                                         "fit.chunk.launch",
+                                         "fit.chunk.read", "fit.finish"}
+    fit, = [s for s in spans_a if s.name == "fit"]
+    assert set(fit.attrs) == {"B", "n_iter", "syncs", "method", "stencils",
+                              "resamples", "blurs"}
+
+
+@pytest.mark.parametrize("form", ["fit", "batch"])
+def test_the_chunk_gets_the_same_state_and_data_at_every_step(form,
+                                                              monkeypatch):
+    """Across the chunks of one fit the stepper hands the chunk the same
+    state object and the same data tensors, the key on which a captured
+    chunk decides to capture anew: a captured fit captures once."""
+    keys = []
+    call = FitChunk.__call__
+
+    def spy(self, st, xdats, subdats=None, n=None):
+        keys.append((id(st), tuple(d.data_ptr() for xc in xdats for d in xc),
+                     tuple(0 if d is None else d.data_ptr()
+                           for d in subdats or ())))
+        return call(self, st, xdats, subdats, n)
+
+    monkeypatch.setattr(FitChunk, "__call__", spy)
+    _, res, _ = _one_subject(form, max_iter=6, chunk_iters=2, tolerance=0)
+    assert res[4] == 6 and len(keys) == 3 and len(set(keys)) == 1
 
 
 def test_fit_batch_logs_one_line_per_round(capsys):

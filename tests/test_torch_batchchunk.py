@@ -40,7 +40,7 @@ from unires_torch.ops.resample import (affine_to_M, pull, pull_grad,
                                        pull_grad_plain, pull_plain, push,
                                        push_plain, push_plan)
 from unires_torch.pipeline.convert import convert_state
-from unires_torch.pipeline.fit import _gather_subdats as t_gather_subdats
+from unires_torch.pipeline.fit import gather_subdats as t_gather_subdats
 from unires_torch.pipeline.fit import get_sched as t_get_sched
 from unires_torch.solvers.cg import cg_batched
 from unires_torch.solvers.fitloop import init_state as t_init_state

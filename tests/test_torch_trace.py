@@ -306,6 +306,42 @@ def test_fortran_ordered_input_gives_the_same_init(chans):
     np.testing.assert_array_equal(sc.mat_coreg, sf.mat_coreg)
 
 
+@pytest.mark.parametrize("form", ["fit", "batch"])
+def test_a_registered_launch_group_reaches_the_fit_span(chans, form,
+                                                        monkeypatch):
+    """A kernel wrapped as ``Counted(fn, group=...)`` is counted in the
+    ``fit`` span of a single fit and of a batch with no edit to
+    ``pipeline/fit.py`` or ``parallel/fit_batch.py``, beside the stencils,
+    resamples and blurs; the registry is as it was afterwards. The stand-in
+    kernel counts its own launches in a CPU tensor, as a kernel does on the
+    device, once an iteration."""
+    from unires_torch.ops import cuda_build
+    from unires_torch.solvers.fitloop import FitChunk
+
+    before = {k: list(v) for k, v in cuda_build.GROUPS.items()}
+    x, y, sett = unires_torch.init(copy.deepcopy(chans), unires_torch.Settings(
+        **dict(KW, chunk_iters=2)))
+    with monkeypatch.context() as m:
+        m.setitem(cuda_build.GROUPS, "probes", [])
+        probe = cuda_build.Counted(lambda: probe.count._dev[0][0].add_(1),
+                                   group="probes")
+        probe.count._dev[0] = torch.zeros(2, dtype=torch.int64)
+        iterate = FitChunk.iterate
+
+        def launching(self, *args, **kw):
+            probe()
+            return iterate(self, *args, **kw)
+
+        m.setattr(FitChunk, "iterate", launching)
+        since = trace.serial()
+        n_iter = (t_fit(x, y, sett) if form == "fit"
+                  else fit_batch([x], [y], sett)[0])[-1]
+        fit, = trace.spans("fit", since)
+    assert n_iter == 5 and fit.attrs["probes"] == 5 == probe.launches
+    assert {"stencils", "resamples", "blurs"} <= set(fit.attrs)
+    assert {k: list(v) for k, v in cuda_build.GROUPS.items()} == before
+
+
 @pytest.mark.parametrize("first_before_mark", [True, False])
 def test_launches_since_sums_each_group_from_one_read(first_before_mark,
                                                       monkeypatch):

@@ -28,8 +28,8 @@ CUDA tensor the functions raise (TypeError for the dtype, ValueError for
 the layout, or a down pass along an axis shorter than its taps), as the
 other kernel wrappers do. Each counts its passes'
 launches on the device (``blur_down_sep.launches``,
-``blur_up_sep.launches``; :data:`BLURS` for ``cuda_build.launch_marks`` /
-``launches_since``).
+``blur_up_sep.launches``), both in the launch group "blurs"
+(``cuda_build.GROUPS``; :data:`BLURS` lists them).
 """
 from __future__ import annotations
 
@@ -210,6 +210,6 @@ def blur_up(dat: torch.Tensor, ker, ratio) -> torch.Tensor:
     return out
 
 
-blur_down_sep = Counted(blur_down_sep)
-blur_up_sep = Counted(blur_up_sep)
+blur_down_sep = Counted(blur_down_sep, group="blurs")
+blur_up_sep = Counted(blur_up_sep, group="blurs")
 BLURS = (blur_down_sep, blur_up_sep)

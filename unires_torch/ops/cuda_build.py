@@ -10,8 +10,9 @@ stale library is never loaded. Nothing is built at import time: the first
 kernel launch builds.
 
 Besides, what every kernel wrapper shares around its launch: the device
-launch counter (:class:`KernelCount`, :class:`Counted`), the check of a
-launch's error code and the int32 size check.
+launch counter (:class:`KernelCount`, :class:`Counted`) and the launch
+groups the fit reports (:data:`GROUPS`), the check of a launch's error code
+and the int32 size check.
 """
 from __future__ import annotations
 
@@ -195,13 +196,20 @@ class KernelCount:
         self._base[i] = int(value)
 
 
+# the launch groups a ``fit`` span reports: group name -> its kernels, each
+# added where it is wrapped (``Counted(fn, group=...)``)
+GROUPS: dict = {}
+
+
 class Counted:
     """A kernel wrapper; ``launches`` / ``fov_launches`` read and set its
-    :class:`KernelCount`."""
+    :class:`KernelCount`; ``group`` adds it to that group of :data:`GROUPS`."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, group: str = None):
         functools.update_wrapper(self, fn)
         self.count = KernelCount()
+        if group is not None:
+            GROUPS.setdefault(group, []).append(self)
 
     def __call__(self, *args, **kw):
         return self.__wrapped__(*args, **kw)
@@ -212,21 +220,25 @@ class Counted:
                             lambda self, v: self.count.set(1, v))
 
 
-def launch_marks(groups: dict) -> dict:
+def launch_marks(groups: dict = None) -> dict:
     """The device counters of each named group of :class:`Counted` kernels
-    (``{name: kernels}``) as they stand, copied on the device (no wait):
-    the start of a :func:`launches_since`."""
-    return {name: [f.count.mark() for f in fns]
+    (``{name: kernels}``, default :data:`GROUPS`) as they stand, copied on
+    the device (no wait): the start of a :func:`launches_since`."""
+    groups = GROUPS if groups is None else groups
+    return {name: {f: f.count.mark() for f in fns}
             for name, fns in groups.items()}
 
 
-def launches_since(groups: dict, marks: dict) -> dict:
-    """``{name: launches}`` of each group since :func:`launch_marks` gave
-    ``marks``, on every device, from one read of each device (it waits for
-    the device); 0 where no kernel of a group has launched."""
+def launches_since(groups: dict = None, marks: dict = None) -> dict:
+    """``{name: launches}`` of each group (default :data:`GROUPS`) since
+    :func:`launch_marks` gave ``marks`` (a kernel it did not mark: since its
+    first launch), on every device, from one read of each device (it waits
+    for the device); 0 where no kernel of a group has launched."""
+    groups = GROUPS if groups is None else groups
     parts = {}  # device index -> [(group, launches as a device tensor)]
     for name, fns in groups.items():
-        for f, mark in zip(fns, marks[name]):
+        for f in fns:
+            mark = (marks or {}).get(name, {}).get(f, {})
             for k, n in f.count.deltas(mark).items():
                 parts.setdefault(k, []).append((name, n))
     out = dict.fromkeys(groups, 0)

@@ -26,8 +26,8 @@ one factor or one per volume shaped to broadcast (a 0-d or (B, 1, ...)
 tensor), multiplied in last as ``scale * result``; the kernel reads it from
 device memory, so it may change between the replays of a captured graph.
 Each counts its kernel's launches on the device (``im_gradient.launches``,
-``im_divergence.launches``, ``DtD.launches``; :data:`STENCILS` for
-``cuda_build.launch_marks`` / ``launches_since``).
+``im_divergence.launches``, ``DtD.launches``), all three in the launch
+group "stencils" (``cuda_build.GROUPS``; :data:`STENCILS` lists them).
 """
 from __future__ import annotations
 
@@ -172,7 +172,7 @@ def DtD(dat: torch.Tensor, vx, which: str = "forward",
     return _launch(DtD, "unires_fd_membrane", v, out, 3, vx, scale)
 
 
-im_gradient = Counted(im_gradient)
-im_divergence = Counted(im_divergence)
-DtD = Counted(DtD)
+im_gradient = Counted(im_gradient, group="stencils")
+im_divergence = Counted(im_divergence, group="stencils")
+DtD = Counted(DtD, group="stencils")
 STENCILS = (im_gradient, im_divergence, DtD)

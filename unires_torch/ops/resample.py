@@ -16,8 +16,8 @@ through the kernel (or an error). There is no fallback from one to the other.
 Each wrapper counts its kernel launches in ``pull.launches`` /
 ``push.launches`` / ``pull_grad.launches``, and pull and push those of the
 kernels' ``fov`` instantiation also in ``pull.fov_launches`` /
-``push.fov_launches``; :data:`RESAMPLES` for ``cuda_build.launch_marks``
-/ ``launches_since``.
+``push.fov_launches``; the three form the launch group "resamples"
+(``cuda_build.GROUPS``; :data:`RESAMPLES` lists them).
 
 Batches: every wrapper also takes a leading batch axis, volumes (B, X, Y,
 Z) with maps (B, 3, 4) (push: plans (B, :data:`PLAN_SIZE`)), and gives
@@ -507,7 +507,7 @@ def pull(vol: torch.Tensor, M, out_dim, order: int = 1,
     return out
 
 
-pull = Counted(pull)
+pull = Counted(pull, group="resamples")
 
 
 def push(vals: torch.Tensor, M, vol_dim, order: int = 1, Minv=None,
@@ -566,7 +566,7 @@ def push(vals: torch.Tensor, M, vol_dim, order: int = 1, Minv=None,
     return out
 
 
-push = Counted(push)
+push = Counted(push, group="resamples")
 
 
 def pull_grad(vol: torch.Tensor, M, out_dim) -> torch.Tensor:
@@ -595,5 +595,5 @@ def pull_grad(vol: torch.Tensor, M, out_dim) -> torch.Tensor:
     return out
 
 
-pull_grad = Counted(pull_grad)
+pull_grad = Counted(pull_grad, group="resamples")
 RESAMPLES = (pull, push, pull_grad)

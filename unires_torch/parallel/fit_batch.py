@@ -2,41 +2,30 @@
 
 The counterpart of ``unires_tpu.parallel.fit_batch``. Subjects are
 independent, so the solve carries no communication between devices. Every
-subject runs the FULL per-subject algorithm — ADMM y/z/w updates, even/odd
-scaling GN, unified rigid GN, the coarse-to-fine lambda schedule and
-per-subject gain convergence — so ``fit_batch`` on B subjects is semantically
-identical to B independent ``pipeline.fit.fit`` runs (tested:
-tests/test_torch_batch.py and tests/test_torch_batchchunk.py pin equality
-against the single fit).
+subject runs the FULL per-subject algorithm (ADMM, scaling and rigid GN,
+the lambda schedule, its own convergence), so ``fit_batch`` on B subjects
+is B independent ``pipeline.fit.fit`` runs (tests/test_torch_batch.py and
+tests/test_torch_batchchunk.py pin equality against the single fit).
 
 As in the JAX package, the subjects of one device form ONE chunk
 (``solvers.fitloop.make_batch_chunk``, the JAX ``make_batch_chunk``'s
-``vmap``): built once from subject 0, every subject's state, data, taus,
-lam0 and geometry stacked on a leading subject axis, so that each
-resampling kernel takes the subjects' volumes in one launch. On the card
-the chunk is one captured CUDA graph, replayed ``chunk_iters`` times and
-read once per chunk for all its subjects; a device's share of one subject
-runs the same chunk with one subject, which is the single fit's iteration.
-Subject b goes to device ``b % g`` (:func:`assign_devices`); with more
-than one device, one host thread drives each. The batch must be
-homogeneous (:func:`check_homogeneous`): its shapes are stacked. There is
-no fallback to per-subject graphs or to the serial path.
+``vmap``), their state and data stacked on a leading subject axis, driven
+by the fit's one stepper (:class:`BatchRun`, a ``pipeline.fit.FitStepper``):
+on the card one captured CUDA graph, read once per chunk for all its
+subjects. Subject b goes to device ``b % g`` (:func:`assign_devices`); with
+more than one device, one host thread drives each. The batch must be
+homogeneous (:func:`check_homogeneous`): its shapes are stacked.
 """
 from __future__ import annotations
 
 import threading
 
-import numpy as np
 import torch
 
-from ..geometry import fov_centre, rigid_from_q
-from ..ops.cuda_build import launch_marks, launches_since
-from ..pipeline.fit import (COUNTED, _gather_subdats, _sync_state, chunk_len,
-                            get_sched)
-from ..solvers.fitloop import (init_state, make_batch_chunk, stack_states,
+from ..pipeline.fit import FitStepper, fit_span
+from ..solvers.fitloop import (FitState, make_batch_chunk, stack_states,
                                subject_state)
 from ..utils import trace
-from ..utils.host import to_host
 
 __all__ = ["assign_devices", "check_homogeneous", "fit_batch"]
 
@@ -111,84 +100,27 @@ def _move(x, y, dev) -> None:
             yc.label = yc.label.to(dev)
 
 
-class BatchRun:
-    """The subjects of one device as one stacked chunk
-    (``solvers.fitloop.make_batch_chunk``): ``step()`` runs a chunk of
-    every subject and reads it once, appending each live iteration's
-    objective to that subject's trace; ``finish()`` writes every subject's
-    state back into its structs (``pipeline.fit._sync_state``, as the JAX
-    package's l.250-264) and returns what ``pipeline.fit.fit`` returns for
-    each. ``capture`` is the chunk's (tests and ``chip_smoke.py`` pass
-    False to run the card uncaptured). Spans (``utils.trace``), as
-    ``pipeline.fit.FitRun``'s: ``fit.setup``, ``fit.chunk``
-    (``fit.chunk.launch``, ``fit.chunk.read``), ``fit.finish``."""
+class BatchRun(FitStepper):
+    """The subjects of one device as one stacked chunk: the many-subject
+    ``pipeline.fit.FitStepper``, whose ``finish()`` returns a list over
+    them (as the JAX package's l.250-264). Its own part: each subject's
+    state and volumes stacked on a leading subject axis, and read back out.
+    ``sett`` is subject 0's on the subjects' device."""
 
     def __init__(self, xs, ys, sett, capture=None):
-        self.xs, self.ys, self.sett = xs, ys, sett
-        self.B = len(xs)
-        self.ids = trace.subjects(ys) or None  # of its spans
-        with trace.span("fit.setup", ids=self.ids):
-            self.chunk = make_batch_chunk(xs, ys, sett, chunk_len(sett),
-                                          capture)
-            self.state = stack_states([init_state(xb, yb, sett)
-                                       for xb, yb in zip(xs, ys)])
-            self.xdats = [[torch.stack([xb[c][n].dat for xb in xs])
-                           for n in range(len(xs[0][c]))]
-                          for c in range(len(xs[0]))]
-            subdats = [_gather_subdats(xb, subs)
-                       for xb, subs in zip(xs, self.chunk.subs_of)]
-            self.subdats = [None if d[0] is None else torch.stack(d)
-                            for d in zip(*subdats)]
-        self.traces = [[] for _ in xs]
+        super().__init__(xs, ys, sett, capture=capture)
 
-    @property
-    def on(self) -> np.ndarray:
-        """The subjects still fitting, as last read: (B,) bool."""
-        h = self.state.host
-        return ~h["done"] & (h["n_iter"] < self.sett.max_iter)
+    def _make_chunk(self, K, capture):
+        return make_batch_chunk(self.xs, self.ys, self.sett, K, capture)
 
-    @property
-    def live(self) -> bool:
-        return bool(self.on.any())
+    @staticmethod
+    def _stack(items):
+        if isinstance(items[0], FitState):
+            return stack_states(items)
+        return torch.stack(items)
 
-    def step(self, n: int = None) -> None:
-        """One chunk of every subject (the finished ones frozen), read
-        once: ``n`` iterations, by default and at most ``chunk_iters``, at
-        most what ``max_iter`` leaves the least advanced live subject. A
-        ``fit.chunk`` span with the iterations asked (``asked``), the
-        subject-iterations run (``iters``) and each subject's ``n_iter``
-        after the read."""
-        with trace.span("fit.chunk", ids=self.ids) as span:
-            n_iter = self.state.host["n_iter"][self.on]
-            n = self.chunk.K if n is None else min(int(n), self.chunk.K)
-            n = min(n, self.sett.max_iter - int(n_iter.min()))
-            with trace.span("fit.chunk.launch"):
-                self.chunk(self.state, self.xdats, self.subdats, n)
-            with trace.span("fit.chunk.read"):
-                out = self.chunk.read(self.state, n)
-            for b in range(self.B):
-                self.traces[b].extend(out["objs"][b, k]
-                                      for k in np.flatnonzero(out["valid"][b]))
-            span.attrs.update(asked=n, iters=int(out["valid"].sum()),
-                              n_iter=[len(t) for t in self.traces])
-
-    def finish(self):
-        out = []
-        basis = self.sett.rigid_basis
-        with trace.span("fit.finish", ids=self.ids):
-            for b, (x, y) in enumerate(zip(self.xs, self.ys)):
-                st = subject_state(self.state, b)
-                _sync_state(x, y, self.sett, st)
-                N = sum(len(xc) for xc in x)
-                R = np.stack([np.eye(4)] * N)
-                centre = fov_centre(y[0].mat, y[0].dim)
-                for i, o in enumerate(o for xc in x for o in xc):
-                    if o.rigid_q is not None and basis is not None:
-                        R[i] = rigid_from_q(o.rigid_q, basis, centre)
-                obj = (np.asarray(self.traces[b]) if self.traces[b]
-                       else np.zeros((0, 3)))
-                out.append((y, R, st.jtv, obj, len(self.traces[b])))
-        return out
+    def _subject(self, b):
+        return subject_state(self.state, b)
 
 
 def fit_batch(xs, ys, sett, devices=None, capture=None):
@@ -207,23 +139,16 @@ def fit_batch(xs, ys, sett, devices=None, capture=None):
     does not read those settings. ``utils.host.to_host.syncs`` counts the
     reads of all devices together: one per chunk per device.
 
-    The call is a ``fit`` span (``utils.trace``) with the subjects' ids,
-    ``B``, each subject's ``n_iter``, the host reads (``syncs``), the
-    method (``method``) and the launches of the finite-difference stencils
-    (``stencils``), of pull, push and pull_grad (``resamples``) and of the
-    blur's passes (``blurs``), a batched launch serving the batch once, read
-    after the fit; each
-    device's spans nest in it, on that device's thread.
+    The call is a ``fit`` span (``pipeline.fit.fit_span``) with the
+    subjects' ids, ``B`` and each subject's ``n_iter``; each device's spans
+    nest in it, on that device's thread.
     """
     B = len(xs)
     if B == 0:
         return []
-    with trace.span("fit", ids=trace.subjects(ys) or None, B=B) as span:
-        syncs0, marks = to_host.syncs, launch_marks(COUNTED)
+    with fit_span(trace.subjects(ys) or None, B, sett) as span:
         results = _fit_batch(xs, ys, sett, devices, capture, span)
-        span.attrs.update(n_iter=[r[-1] for r in results],
-                          syncs=to_host.syncs - syncs0, method=sett.method,
-                          **launches_since(COUNTED, marks))
+        span.attrs["n_iter"] = [r[-1] for r in results]
     return results
 
 
@@ -231,15 +156,8 @@ def _fit_batch(xs, ys, sett, devices, capture, span):
     """:func:`fit_batch` inside its span ``span``."""
     B = len(xs)
     check_homogeneous(xs, ys, sett)
-    sett = get_sched(sum(len(xc) for xc in xs[0]), sett)
-    reg0 = float(np.atleast_1d(sett.reg_scl)[0])
-    for yb in ys:
-        for yc in yb:
-            yc.lam = reg0 * yc.lam0
-
     if sett.max_iter <= 0:
-        return [(ys[b], np.stack([np.eye(4)] * sum(len(xc) for xc in xs[b])),
-                 None, np.zeros((0, 3)), 0) for b in range(B)]
+        return BatchRun(xs, ys, sett).finish()
 
     devices = ([torch.device(d) for d in devices] if devices is not None
                else batch_devices(sett))

@@ -19,7 +19,7 @@ import torch
 from ..models.proj_op import ProjOp
 from ..settings import Settings
 from ..solvers.fitloop import FitState, init_state
-from .fit import _sync_state
+from .fit import sync_state
 from .structs import Chan, Obs
 
 
@@ -111,7 +111,7 @@ def convert_state(x, y, sett, device="cpu", z=None, w=None, state=None):
     out = (x_t, y_t, sett_t)
     if state is not None:
         st = convert_fit_state(state, x_t, y_t, sett_t)
-        _sync_state(x_t, y_t, sett_t, st)
+        sync_state(x_t, y_t, sett_t, st)
         return out + (st,)
     if z is not None or w is not None:
         out = out + (to_tensor(z, device), to_tensor(w, device))

@@ -4,17 +4,16 @@ Mirrors ``unires_tpu.pipeline.fit`` (reference ``fit``, unires/run.py:24-207):
 lambda schedule with countdowns, gain-based convergence, optional even/odd
 scaling and unified rigid updates, FOV cleaning and rigid-matrix collection.
 The iterations run in chunks of ``Settings.chunk_iters``
-(``solvers.fitloop.make_fit_chunk``: on the card, replays of a captured
-CUDA graph), and the host reads each chunk once, as the JAX loop does
-(``unires_tpu/pipeline/fit.py:209-235``); a chunk is cut short so that a
-checkpoint lands every ``checkpoint_every`` iterations. A stepper
-(:class:`FitRun`) holds the chunk (``parallel.fit_batch`` stacks a batch's
-subjects into one chunk of its own). Around the loop: checkpoint /
-resume (``pipeline.checkpoint``), a ``torch.profiler`` trace
-(``Settings.profile_dir``) and the matplotlib dashboards (``utils.plots``),
-at chunk cadence. The JAX package's window re-plans have no counterpart:
-the CUDA kernels take any affine, so a drifted pose never needs another
-program.
+(``solvers.fitloop.FitChunk``: on the card, replays of a captured CUDA
+graph), each read by the host once, as the JAX loop does
+(``unires_tpu/pipeline/fit.py:209-235``). One stepper (:class:`FitStepper`)
+drives the chunk of one subject (:class:`FitRun`) or of a device's share of
+a batch (``parallel.fit_batch.BatchRun``). Around a single fit's loop, at
+chunk cadence: checkpoint / resume (``pipeline.checkpoint``; a chunk is cut
+short to land on ``checkpoint_every``), a ``torch.profiler`` trace
+(``Settings.profile_dir``) and the dashboards (``utils.plots``). The JAX
+package's window re-plans have no counterpart: the CUDA kernels take any
+affine, so a drifted pose never needs another program.
 """
 from __future__ import annotations
 
@@ -27,22 +26,16 @@ import numpy as np
 import torch
 
 from ..geometry import fov_centre, rigid_from_q
-from ..ops.conv import BLURS
 from ..ops.cuda_build import launch_marks, launches_since
-from ..ops.finite_diff import STENCILS
-from ..ops.resample import RESAMPLES, affine_to_M, pull
+from ..ops.resample import affine_to_M, pull
 from ..solvers.admm import step_size
-from ..solvers.fitloop import FitState, init_state, make_fit_chunk
+from ..solvers.fitloop import FitState, chunk_len, init_state, make_fit_chunk
 from ..utils import trace
 from ..utils.host import to_host
 from ..utils.log import info
 from ..utils.plots import plot_convergence, require_matplotlib, show_slices
 from .checkpoint import load_checkpoint, restore_into, save_checkpoint
 from .structs import XData, YData
-
-# the kernel groups whose device launches a ``fit`` span reports
-COUNTED = {"stencils": STENCILS, "resamples": RESAMPLES, "blurs": BLURS}
-
 
 def get_gain(obj_trace) -> float:
     """Relative gain of the last step (nitorch get_gain, run.py:100)."""
@@ -93,7 +86,7 @@ def clean_fov(x: XData, y: YData) -> None:
         y[c].dat = torch.where(msk, y[c].dat, 0.0)
 
 
-def _gather_subdats(x, subs):
+def gather_subdats(x, subs):
     """Flat per-observation NN-subsampled volumes for the rigid update
     (reference unires/_update.py:589-593) on the grids that
     ``solvers.fitloop.chunk_geom`` chose (``subs``); None without unified
@@ -105,7 +98,7 @@ def _gather_subdats(x, subs):
             for o, s in zip(obs, subs)]
 
 
-def _sync_state(x, y, sett, state: FitState) -> None:
+def sync_state(x, y, sett, state: FitState) -> None:
     """Write the loop state back into the pipeline structs: q -> rigid_q and
     the centre-conjugated po.rigid, scl -> po.scl (the host's copies, as
     last read), ys -> y (device views), lam."""
@@ -126,116 +119,175 @@ def _sync_state(x, y, sett, state: FitState) -> None:
         y[c].lam = float(reg[min(cnt, reg.size - 1)]) * y[c].lam0
 
 
-def chunk_len(sett) -> int:
-    """Iterations per chunk: ``chunk_iters``, at most ``max_iter``."""
-    return max(1, min(int(getattr(sett, "chunk_iters", 16)),
-                      int(sett.max_iter)))
-
-
-class FitRun:
-    """One subject's fit as a stepper over chunks: ``launch(n)`` enqueues
-    up to n outer iterations (at most ``chunk_iters``) and ``collect()``
-    reads them back once, appending their objectives to ``obj_trace``;
-    ``step()`` does both; ``finish()`` writes the loop state back into the
-    structs and returns what ``fit`` returns.
-
-    ``fit`` drives one of these to the end. It owns its chunk
-    (``solvers.fitloop.make_fit_chunk``: on the card, a captured graph
-    bound to this subject's state). ``capture`` is the chunk's (tests and
-    ``chip_smoke.py`` pass False to run the card uncaptured). Spans
-    (``utils.trace``): ``fit.setup`` (the construction), per step
-    ``fit.chunk`` (``fit.chunk.launch``, ``fit.chunk.read``), ``fit.finish``.
+class FitStepper:
+    """A fit's host side: the B subjects of one device in one chunk
+    (``solvers.fitloop.FitChunk``; B = 1 for a single fit). ``step(n)``
+    launches a chunk of every subject (``launch``) and reads it once,
+    appending each live iteration's objective to that subject's trace
+    (``traces``); ``finish()`` writes the states back
+    (:func:`sync_state`) and returns :func:`fit`'s tuple for each subject.
+    Its forms, :class:`FitRun` (one subject, its state unstacked) and
+    ``parallel.fit_batch.BatchRun`` (stacked), give the chunk
+    (``_make_chunk``), the chunk's state and volumes from the subjects'
+    (``_stack``) and a subject's state (``_subject``). ``state`` and
+    ``traces`` continue a fit; ``capture`` is the chunk's. With ``max_iter``
+    <= 0 nothing is built. Spans (``utils.trace``, with the subjects' ids):
+    ``fit.setup``, ``fit.chunk`` (``.launch``, ``.read``), ``fit.finish``.
+    The chunk gets the same state and tensors at every step, so a captured
+    chunk captures once.
     """
 
-    def __init__(self, x: XData, y: YData, sett, state: FitState = None,
-                 obj_trace=None, capture=None):
-        self.x, self.y = x, y
-        self.N = sum(len(xc) for xc in x)
+    def __init__(self, xs, ys, sett, state: FitState = None, traces=None,
+                 capture=None):
+        self.xs, self.ys, self.B = xs, ys, len(xs)
+        self.ids = trace.subjects(ys) or None  # of its spans
+        self.N = sum(len(xc) for xc in xs[0])
         self.sett = sett = get_sched(self.N, sett)
-        self.obj_trace = list(obj_trace) if obj_trace is not None else []
+        self.traces = ([list(t) for t in traces] if traces is not None
+                       else [[] for _ in xs])
         self.state = None
         self.pending = 0
         if state is None:
             # schedule position 0
             reg = np.atleast_1d(np.asarray(sett.reg_scl, np.float64))
-            for yc in y:
-                yc.lam = float(reg[0]) * yc.lam0
-        if sett.max_iter > 0:
-            with trace.span("fit.setup"):
-                info(sett, "step-size", step_size(x, y, sett))
-                self.state = (state if state is not None
-                              else init_state(x, y, sett))
-                self.chunk = make_fit_chunk(x, y, sett, chunk_len(sett),
-                                            capture)
-                self.xdats = [[o.dat for o in xc] for xc in x]
-                self.subdats = _gather_subdats(x, self.chunk.subs)
+            for y in ys:
+                for yc in y:
+                    yc.lam = float(reg[0]) * yc.lam0
+        if sett.max_iter <= 0:
+            return
+        with trace.span("fit.setup", ids=self.ids):
+            info(sett, "step-size", step_size(xs[0], ys[0], sett))
+            self.chunk = self._make_chunk(chunk_len(sett), capture)
+            self.state = (state if state is not None else self._stack(
+                [init_state(x, y, sett) for x, y in zip(xs, ys)]))
+            self.xdats = [[self._stack([x[c][n].dat for x in xs])
+                           for n in range(len(xs[0][c]))]
+                          for c in range(len(xs[0]))]
+            subdats = [gather_subdats(x, subs)
+                       for x, subs in zip(xs, self.chunk.subs_of)]
+            self.subdats = [None if d[0] is None else self._stack(d)
+                            for d in zip(*subdats)]
+
+    @property
+    def on(self) -> np.ndarray:
+        """The subjects still fitting, as last read: (B,) bool."""
+        h = self.state.host
+        return (~np.atleast_1d(h["done"])
+                & (np.atleast_1d(h["n_iter"]) < self.sett.max_iter))
+
+    @property
+    def live(self) -> bool:
+        return self.state is not None and bool(self.on.any())
+
+    def launch(self, n: int = None) -> None:
+        """Enqueue a chunk of ``n`` iterations, by default and at most
+        ``chunk_iters``, at most what ``max_iter`` leaves the least advanced
+        live subject (every subject, when none is live)."""
+        n = self.chunk.K if n is None else min(int(n), self.chunk.K)
+        n_iter = np.atleast_1d(self.state.host["n_iter"])
+        least = int(n_iter[self.on].min(initial=n_iter.max()))
+        self.pending = min(n, self.sett.max_iter - least)
+        self.chunk(self.state, self.xdats, self.subdats, self.pending)
+
+    def _collect(self):
+        """Read the launched chunk (one read); returns each subject's live
+        iterations' (obj (3,), gain) rows, also appended to its trace."""
+        n, self.pending = self.pending, 0
+        out = self.chunk.read(self.state, n)
+        objs = out["objs"].reshape(self.B, n, 3)
+        gains = out["gains"].reshape(self.B, n)
+        valid = out["valid"].reshape(self.B, n)
+        rows = [[(objs[b, k], float(gains[b, k]))
+                 for k in np.flatnonzero(valid[b])] for b in range(self.B)]
+        for t, r in zip(self.traces, rows):
+            t.extend(obj for obj, _ in r)
+        return rows
+
+    def step(self, n: int = None):
+        """One chunk, launched and read; returns each subject's rows
+        (:meth:`_collect`). A ``fit.chunk`` span with the iterations asked
+        (``asked``), the subject-iterations run (``iters``) and each
+        subject's ``n_iter`` after the read."""
+        with trace.span("fit.chunk", ids=self.ids) as span:
+            with trace.span("fit.chunk.launch"):
+                self.launch(n)
+            span.attrs["asked"] = self.pending
+            with trace.span("fit.chunk.read"):
+                rows = self._collect()
+            span.attrs.update(iters=sum(map(len, rows)),
+                              n_iter=[len(t) for t in self.traces])
+        return rows
+
+    def finish(self, clean: bool = False):
+        """Each subject's (y, R, jtv, obj_trace, n_iter), its structs
+        brought up to date; ``clean`` applies ``Settings.clean_fov``."""
+        sett, basis = self.sett, self.sett.rigid_basis
+        out = []
+        with trace.span("fit.finish", ids=self.ids):
+            for b, (x, y) in enumerate(zip(self.xs, self.ys)):
+                jtv = None
+                if self.state is not None:
+                    st = self._subject(b)
+                    sync_state(x, y, sett, st)
+                    jtv = st.jtv
+                if clean and sett.clean_fov:
+                    clean_fov(x, y)
+                # rigid matrices (reference run.py:195-200): centre-
+                # conjugated world transforms of the fitted pose parameters
+                obs = [o for xc in x for o in xc]
+                R = np.stack([np.eye(4)] * len(obs))
+                centre = fov_centre(y[0].mat, y[0].dim)
+                for i, o in enumerate(obs):
+                    if o.rigid_q is not None and basis is not None:
+                        R[i] = rigid_from_q(o.rigid_q, basis, centre)
+                t = self.traces[b]
+                out.append((y, R, jtv, np.asarray(t) if t
+                            else np.zeros((0, 3)), len(t)))
+        return out
+
+
+class FitRun(FitStepper):
+    """One subject's fit, the single-subject :class:`FitStepper`: its chunk
+    ``make_fit_chunk``'s, its state an unstacked ``FitState`` (checkpoints,
+    ``pipeline.convert``). What a batch does not read: ``collect()``, the
+    read of a ``launch()`` returning the one subject's rows, ``obj_trace``,
+    ``n_iter``, ``sync()``, and ``finish()`` with ``clean_fov``, returning
+    one tuple. ``fit`` drives one to the end; ``state`` and ``obj_trace``
+    continue a fit (a resume, ``pipeline.convert``)."""
+
+    def __init__(self, x: XData, y: YData, sett, state: FitState = None,
+                 obj_trace=None, capture=None):
+        self.x, self.y = x, y
+        super().__init__([x], [y], sett, state,
+                         None if obj_trace is None else [obj_trace], capture)
+
+    def _make_chunk(self, K, capture):
+        return make_fit_chunk(self.x, self.y, self.sett, K, capture)
+
+    @staticmethod
+    def _stack(items):
+        return items[0]  # one subject, no subject axis
+
+    def _subject(self, b):
+        return self.state
+
+    @property
+    def obj_trace(self) -> list:
+        return self.traces[0]
 
     @property
     def n_iter(self) -> int:
         """Outer iterations done, as last read."""
         return self.state.host["n_iter"]
 
-    @property
-    def live(self) -> bool:
-        st = self.state
-        return (st is not None and not st.host["done"]
-                and st.host["n_iter"] < self.sett.max_iter)
-
-    def launch(self, n: int = None) -> None:
-        """Enqueue the next chunk: ``n`` iterations (default and at most
-        ``chunk_iters``, at most what ``max_iter`` leaves)."""
-        n = self.chunk.K if n is None else min(int(n), self.chunk.K)
-        n = min(n, self.sett.max_iter - self.n_iter)
-        self.pending = n
-        self.chunk(self.state, self.xdats, self.subdats, n)
-
     def collect(self):
-        """Read the launched chunk (one read); returns its live iterations'
-        (obj (3,), gain) rows, also appended to ``obj_trace``."""
-        out = self.chunk.read(self.state, self.pending)
-        self.pending = 0
-        rows = [(out["objs"][k], float(out["gains"][k]))
-                for k in np.flatnonzero(out["valid"])]
-        self.obj_trace.extend(obj for obj, _ in rows)
-        return rows
-
-    def step(self, n: int = None):
-        """One chunk, launched and read; returns its rows (:meth:`collect`).
-        A ``fit.chunk`` span with the iterations asked (``asked``), those
-        run (``iters``) and ``n_iter`` after the read."""
-        with trace.span("fit.chunk") as span:
-            with trace.span("fit.chunk.launch"):
-                self.launch(n)
-            span.attrs["asked"] = self.pending
-            with trace.span("fit.chunk.read"):
-                rows = self.collect()
-            span.attrs.update(iters=len(rows), n_iter=[len(self.obj_trace)])
-        return rows
+        return self._collect()[0]
 
     def sync(self) -> None:
-        _sync_state(self.x, self.y, self.sett, self.state)
+        sync_state(self.x, self.y, self.sett, self.state)
 
     def finish(self, clean: bool = True):
-        """(y, R, jtv, obj_trace, n_iter) with the structs brought up to
-        date; ``clean`` applies ``Settings.clean_fov``."""
-        x, y, sett = self.x, self.y, self.sett
-        with trace.span("fit.finish"):
-            jtv = None
-            if self.state is not None:
-                self.sync()
-                jtv = self.state.jtv
-            if clean and sett.clean_fov:
-                clean_fov(x, y)
-            # rigid matrices (reference run.py:195-200): centre-conjugated
-            # world transforms of the fitted pose parameters
-            R = np.stack([np.eye(4)] * self.N)
-            centre = fov_centre(y[0].mat, y[0].dim)
-            for i, o in enumerate(o for xc in x for o in xc):
-                if o.rigid_q is not None and sett.rigid_basis is not None:
-                    R[i] = rigid_from_q(o.rigid_q, sett.rigid_basis, centre)
-            obj = (np.asarray(self.obj_trace) if self.obj_trace
-                   else np.zeros((0, 3)))
-        return y, R, jtv, obj, len(self.obj_trace)
+        return super().finish(clean)[0]
 
 
 def _resume_state(x, y, sett):
@@ -316,6 +368,21 @@ def _dashboards(run: FitRun) -> None:
         show_slices(st.jtv, title="JTV", fig_num=98, cmap="coolwarm")
 
 
+@contextlib.contextmanager
+def fit_span(ids, B: int, sett):
+    """The ``fit`` span (``utils.trace``) of a fit of ``B`` subjects
+    (trace ``ids``); the caller adds each subject's ``n_iter``. At its end
+    it gains the host reads (``syncs``, the capture's wait included),
+    ``method`` and each launch group's device launches
+    (``ops.cuda_build.GROUPS``: ``stencils``, ``resamples``, ``blurs``; 0
+    where the plain versions ran), read after the fit's last read."""
+    with trace.span("fit", ids=ids, B=B) as span:
+        syncs0, marks = to_host.syncs, launch_marks()
+        yield span
+        span.attrs.update(syncs=to_host.syncs - syncs0, method=sett.method,
+                          **launches_since(marks=marks))
+
+
 def fit(x: XData, y: YData, sett, state: FitState = None, capture=None):
     """Run the iterative solver; returns (y, R, jtv, obj_trace, n_iter).
 
@@ -331,20 +398,12 @@ def fit(x: XData, y: YData, sett, state: FitState = None, capture=None):
     the iterations before the checkpoint too; without the file it starts
     fresh.
 
-    The call is a ``fit`` span (``utils.trace``) with the subject's
-    ``n_iter``, its host reads (``syncs``, the capture's wait included),
-    the method (``method``: "super-resolution" or "denoising") and the
-    launches of the finite-difference stencils (``stencils``), of the
-    pull, push and pull_grad kernels (``resamples``) and of the blur's
-    passes (``blurs``), each read from the device after the fit's own last
-    read (0 where the plain versions ran).
+    The call is a ``fit`` span (:func:`fit_span`) with the subject's
+    ``n_iter``.
     """
-    with trace.span("fit", ids=trace.subjects([y]) or None, B=1) as span:
-        syncs0, marks = to_host.syncs, launch_marks(COUNTED)
+    with fit_span(trace.subjects([y]) or None, 1, sett) as span:
         out = _fit(x, y, sett, state, capture)
-        span.attrs.update(n_iter=[out[-1]], syncs=to_host.syncs - syncs0,
-                          method=sett.method,
-                          **launches_since(COUNTED, marks))
+        span.attrs["n_iter"] = [out[-1]]
     return out
 
 
@@ -368,7 +427,7 @@ def _fit(x, y, sett, state, capture):
                 n = run.chunk.K
                 if every > 0:
                     n = min(n, every - (run.n_iter - last_ckpt))
-                rows = run.step(n)
+                rows, = run.step(n)
                 t_now = timer()
                 per_iter = (t_now - t_chunk) / max(len(rows), 1)
                 base = run.n_iter - len(rows)

@@ -86,7 +86,7 @@ class FitState:
 
     ``host`` holds the host's copy of q, scl and the scalars as last read
     (:meth:`FitChunk.read`) or as the state was made; the stepper
-    (``pipeline.fit.FitRun``) decides from it and never reads the device
+    (``pipeline.fit.FitStepper``) decides from it and never reads the device
     state again in between. A batch's state (:func:`stack_states`) has
     every field stacked on a leading subject axis."""
 
@@ -155,6 +155,13 @@ def init_state(x, y, sett, z=None, w=None, **scalars) -> FitState:
         host=host, **vals)
 
 
+def chunk_len(sett) -> int:
+    """Iterations per chunk: ``chunk_iters``, at most ``max_iter`` (at least
+    one); also the cadence of the CG diagonals' refresh."""
+    return max(1, min(int(getattr(sett, "chunk_iters", 16)),
+                      int(sett.max_iter)))
+
+
 def chunk_geom(x, y, sett):
     """Per-observation geometry of the fit: ``(pres, posts, subs)``.
 
@@ -163,7 +170,7 @@ def chunk_geom(x, y, sett):
     rigid-subsample grid: ``po`` (the operator on it), ``post`` (its post
     factor), ``dim``, ``center`` and ``sub_is_main`` (the grids coincide,
     the ``rigid_samp=1`` default on >= 1 mm data). This is the one place
-    that decides the grid: ``pipeline.fit._gather_subdats`` reads it.
+    that decides the grid: ``pipeline.fit.gather_subdats`` reads it.
     """
     method = sett.method
     dim_y = tuple(int(d) for d in y[0].dim)
@@ -240,7 +247,7 @@ class FitChunk:
 
     ``xdats`` is nested as the observations (``[[o.dat for o in xc] for xc
     in x]``), ``subdats`` the flat per-observation list of rigid-subsample
-    volumes (``pipeline.fit._gather_subdats`` of :attr:`subs`; None where
+    volumes (``pipeline.fit.gather_subdats`` of :attr:`subs`; None where
     the grids coincide). The per-observation updates ``maps``,
     ``scaling_obs``, ``rigid_stats`` and ``rigid_ls`` are methods, as the
     JAX chunk's ``_debug``.
@@ -322,8 +329,7 @@ class FitChunk:
                             for t in taus.T])
         self.tol = float(sett.tolerance)
         self.max_iter = int(sett.max_iter)
-        self.cadence = max(1, min(int(getattr(sett, "chunk_iters", 16)),
-                                  self.max_iter))
+        self.cadence = chunk_len(sett)
         self.do_scaling = bool(sett.scaling)
         self.do_rigid = bool(sett.unified_rigid)
         self.gauge_anchor = bool(getattr(sett, "rigid_gauge_anchor", True))
