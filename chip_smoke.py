@@ -48,7 +48,14 @@ Phases, each printing its lines:
    (``conv3d`` / ``conv_transpose3d`` with a (K, 1, 1) kernel at stride
    (r, 1, 1) a pass, TF32 off, held to the plain chain to 1e-5 of scale)
    and its bound (each pass's input read once and output written once at
-   3.35 TB/s).
+   3.35 TB/s). Then the rigid GN statistics (``ops/gn_stats.py``:
+   ``gn_moments``, the 72 float64 moments of G and W) at the observations'
+   grids of ``brainweb_sr3`` (dim_yx), ``brainweb_common`` (each thick
+   axis), ``brainweb_denoise3`` (dim_x, no C^T C) and as a B = 2 batch at
+   the first: every moment within ``GN_TOL`` of the plain chain's,
+   relative to its sum of |terms|, a rerun equal to the bit, two launches;
+   its device ms beside the plain chain's and its bound (gradient,
+   residual and C^T C read once at 3.35 TB/s).
 4. Small slices, each fitted on the card and on the CPU (plain versions)
    with the objective traces compared: a pre-aligned 2-channel problem, and
    a misaligned one with co-registration, unified rigid and even/odd
@@ -58,8 +65,9 @@ Phases, each printing its lines:
    slices, first pre-aligned (init + fit, no GN updates), then as
    ``bench.py`` builds it (per-channel rigid misalignment, even/odd scaling
    0.1) through ``unires_torch.init`` (NMI co-registration) + fit with
-   unified rigid and scaling. Kernel launch counters (the stencils' and the
-   blur's too; each must be > 0 after the misaligned fit) are
+   unified rigid and scaling. Kernel launch counters (the stencils', the
+   blur's and the GN statistics' too; each must be > 0 after the misaligned
+   fit) are
    reset just before each run and read just after it (the kernels count
    their own launches on the device, those of a graph's replays included). Prints init / coreg
    seconds, s/iter, PSNR and sr_vs_trilinear (as bench.py), each channel's
@@ -157,7 +165,9 @@ stencils' record (phase 3's cases by ``entry/case``, each with its entry's
 both required > 0) and the blur's record (phase 3's cases by
 ``direction/case``, each with its ``passes`` there and its direction's
 ``launches`` in the misaligned run and ``launches_converged`` in phase 9,
-both required > 0), the one
+both required > 0) and the GN statistics' record (phase 3's cases, each
+with the kernel's ``launches`` in the misaligned run and
+``launches_converged`` in phase 9, both required > 0), the one
 before it the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``. Any failure raises: nothing is
 caught.
@@ -187,7 +197,7 @@ from unires_torch.geometry import (affine_basis, affine_diag,
 from unires_torch.models.forward import obs_dyn_args, proj_apply
 from unires_torch.models.proj_op import proj_info
 from unires_torch.kernels import kernel_1d
-from unires_torch.ops import conv, cuda_build
+from unires_torch.ops import conv, cuda_build, gn_stats
 from unires_torch.ops import finite_diff as fd
 from unires_torch.ops.resample import (_as_map, _fov_mask, _sample_coords,
                                        affine_to_M, pull, pull_grad,
@@ -817,6 +827,7 @@ def phase_kernels(device="cuda"):
                        for e, c, k, p, n in stencil_cases(device)}
     rec["blurs"] = {f"{c[0]}/{c[1]}": _measure_blur(*c)
                     for c in blur_cases(device)}
+    rec["gn_stats"] = {c[0]: _measure_gn(*c) for c in gn_cases(device)}
     return rec
 
 
@@ -1000,6 +1011,78 @@ def _measure_blur(direction, case, kern, plain, passes, B, library):
           f"| bound {bnd:.4f} ms (bytes) | share {bnd / ms:.1%}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
                 passes=launches)
+
+
+# the rigid GN statistics' grids: (case, grid, with C^T C, volumes) of
+# brainweb_sr3's observations (dim_yx), brainweb_common's after the atlas
+# alignment (each thick axis, as BLUR_CASES), brainweb_denoise3's (dim_x,
+# no C^T C) and a batch of two subjects at the first
+GN_CASES = (("sr3", (181, 217, 185), True, 1),
+            ("common_thick2", (369, 441, 230), True, 1),
+            ("common_thick1", (369, 275, 369), True, 1),
+            ("common_thick0", (230, 441, 369), True, 1),
+            ("denoise3", (181, 217, 181), False, 1),
+            ("batch2", (181, 217, 185), True, 2))
+GN_TOL = 1e-12  # of each moment's sum of |terms|: the float64 sums' order
+
+
+def gn_cases(device="cuda"):
+    """The rigid GN statistics' cases of phase 3: (case, kernel call, plain
+    call, call on absolute values (each moment's sum of |terms|), bytes the
+    call must read): normal gradients, a residual with a tenth of zeros, a
+    positive C^T C (or 1.0), as ``match_stats_device`` passes them."""
+    from unires_torch.solvers.rigid import _centred_coords
+
+    out = []
+    for case, dim, with_ctc, B in GN_CASES:
+        g = torch.Generator(device=device).manual_seed(7)
+        lead = (B,) if B > 1 else ()
+        gr = torch.randn(lead + dim + (3,), generator=g, device=device)
+        diff = torch.randn(lead + dim, generator=g, device=device)
+        diff[diff.abs() < 0.125] = 0.0
+        ctc = (torch.rand(dim, generator=g, device=device) + 0.25
+               if with_ctc else 1.0)
+        coords = _centred_coords(dim, tuple((n - 1) / 2 for n in dim),
+                                 device)
+        args = (gr, diff, ctc, coords)
+        absolute = (gr.abs(), diff.abs(), ctc.abs() if with_ctc else 1.0,
+                    tuple(c.abs() for c in coords))
+        nbytes = 4 * (gr.numel() + diff.numel()
+                      + (B * ctc.numel() if with_ctc else 0))
+        out.append((case, lambda a=args: gn_stats.gn_moments(*a),
+                    lambda a=args: gn_stats.gn_moments_plain(*a),
+                    lambda a=absolute: gn_stats.gn_moments_plain(*a),
+                    nbytes))
+    return out
+
+
+def _measure_gn(case, kern, plain, absolute, nbytes):
+    """One case of the rigid GN statistics: every moment within ``GN_TOL``
+    of the plain chain's, relative to its sum of |terms|, a rerun equal to
+    the bit, two launches; its device ms beside the plain chain's and its
+    bound (each input read once at 3.35 TB/s). Prints a line and returns
+    the record."""
+    n0 = gn_stats.gn_moments.launches
+    got = kern()
+    torch.cuda.synchronize()
+    launches = gn_stats.gn_moments.launches - n0
+    want, scale = plain(), absolute()
+    again = kern()
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / scale).max())
+    require(float(scale.min()) > 0 and rel <= GN_TOL,
+            f"gn_stats {case}: {rel:.3e} of the sum of |terms| > {GN_TOL}")
+    require(torch.equal(got.view(torch.int64), again.view(torch.int64)),
+            f"gn_stats {case}: a rerun differs")
+    require(launches == 2, f"gn_stats {case}: {launches} launches, not 2")
+    ms, plain_ms = _time_ms(kern), _time_ms(plain)
+    bnd = 1e3 * nbytes / HBM_BYTES_PER_S
+    print(f"[kernels] gn_stats {case} ({nbytes / 1e6:.1f} MB): {rel:.2e} of "
+          f"the sum of |terms|, rerun bitwise | kernel {ms:.4f} ms | plain "
+          f"{plain_ms:.4f} ms ({plain_ms / ms:.2f}x) | "
+          f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s | bound {bnd:.4f} ms "
+          f"(bytes) | share {bnd / ms:.1%}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd, rel_err=rel)
 
 
 def _degrade(gt, thick_axis, noise_sd, rng, device, rigid=None, scl=0.0):
@@ -1405,7 +1488,7 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
     fitloop.FitChunk._capture = capture
     syncs = (to_host.syncs - syncs0) / max(n_iter, 1)
     launches, stencils = _counts(), _stencil_counts()
-    blurs = _blur_counts()
+    blurs, gn = _blur_counts(), gn_stats.gn_moments.launches
     peak = torch.cuda.max_memory_allocated()
 
     n_coreg = coreg["launches"]
@@ -1426,6 +1509,7 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
             f"a stencil of the path never launched: {stencils}")
     require(all(n > 0 for n in blurs.values()),
             f"a blur pass of the path never launched: {blurs}")
+    require(gn > 0, "the rigid GN statistics never launched their kernel")
     _check_fit(dat_y, y, obj, jtv, n_iter, max_iter)
     fig = _figures(inputs, x, y, sett, obj, n_iter, gts[0], tri, device)
     _check_vs_jax("bench", fig, converged=False)
@@ -1443,7 +1527,8 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
           f"{peak_init / 2 ** 30:.3f} GiB (host loop: "
           f"{HOST_LOOP['init_peak']}), all {peak / 2 ** 30:.3f} GiB | host "
           f"syncs/iter {syncs:.3f} (host loop: {HOST_LOOP['syncs']}) | "
-          f"launches {launches}, stencils {stencils}, blurs {blurs}")
+          f"launches {launches}, stencils {stencils}, blurs {blurs}, "
+          f"gn_stats {gn}")
     print(f"[bench] fitted scl {scl} (simulated 0.1)")
     for c in range(3):
         inv_true = np.linalg.inv(rigids[c])
@@ -1493,7 +1578,7 @@ def phase_misaligned(device="cuda", dim=DIM_Y, max_iter=8):
           f"seconds captured {coreg['s']:.3f}, uncaptured {t_u:.3f} | host "
           f"syncs captured {coreg['syncs']}, uncaptured {syncs_u}")
     require(same, "the captured coreg's mat_a differs from the uncaptured")
-    return launches, n_coreg, stencils, blurs
+    return launches, n_coreg, stencils, blurs, gn
 
 
 def _residual(mat, true):
@@ -1709,7 +1794,7 @@ def _blur_counts():
 def _reset_counts():
     pull.launches = push.launches = pull_grad.launches = 0
     pull.fov_launches = push.fov_launches = 0
-    for f in fd.STENCILS + conv.BLURS:
+    for f in fd.STENCILS + conv.BLURS + (gn_stats.gn_moments,):
         f.launches = 0
 
 
@@ -2042,7 +2127,7 @@ def phase_converged(smi, device="cuda", dim=DIM_Y):
     fitloop.FitChunk._capture = capture
     syncs = (to_host.syncs - syncs0) / max(n_iter, 1)
     launches, stencils = _counts(), _stencil_counts()
-    blurs = _blur_counts()
+    blurs, gn = _blur_counts(), gn_stats.gn_moments.launches
     peak = torch.cuda.max_memory_allocated()
     fig = _figures(inputs, x, y, sett, obj, n_iter, gts[0], tri, device)
     psnr, ratio = fig["psnr"], fig["sr_vs_trilinear"]
@@ -2057,12 +2142,14 @@ def phase_converged(smi, device="cuda", dim=DIM_Y):
           f"sr_vs_trilinear {ratio:.4f} (host loop: {HOST_LOOP['ratio']}, "
           f"{ratio - HOST_LOOP['ratio']:+.4f}) | peak mem "
           f"{peak / 2 ** 30:.3f} GiB | launches {launches}, stencils "
-          f"{stencils}, blurs {blurs}")
+          f"{stencils}, blurs {blurs}, gn_stats {gn}")
     require(n_iter < sett.max_iter, f"no convergence in {n_iter} iterations")
     require(all(n > 0 for n in stencils.values()),
             f"a stencil of the converged fit never launched: {stencils}")
     require(all(n > 0 for n in blurs.values()),
             f"a blur pass of the converged fit never launched: {blurs}")
+    require(gn > 0, "the converged fit's rigid GN statistics never launched "
+            "their kernel")
     require(bool(torch.isfinite(jtv).all()) and np.isfinite(R).all(),
             "non-finite result")
     steps = _sched_steps(fig["nll"])
@@ -2073,7 +2160,7 @@ def phase_converged(smi, device="cuda", dim=DIM_Y):
     _check_vs_jax("converged", fig, converged=True)
     require(psnr >= PSNR_FLOOR and ratio <= RATIO_CEIL,
             f"quality floor missed: psnr {psnr} dB, sr_vs_trilinear {ratio}")
-    return launches, stencils, blurs
+    return launches, stencils, blurs, gn
 
 
 def _rel(a, b):
@@ -2249,14 +2336,14 @@ def main():
     phase_small_slice()
     phase_small_misaligned()
     phase_slice()
-    launches, launches_coreg, stencils, blurs = phase_misaligned()
+    launches, launches_coreg, stencils, blurs, gn = phase_misaligned()
     with tempfile.TemporaryDirectory() as tmp:
         launches_atlas = phase_atlas(tmp)
         phase_ct_inplane(tmp)
         phase_cli(tmp)
         launches_batch = phase_long_runs(tmp)
-        launches_converged, stencils_converged, blurs_converged = (
-            phase_converged(smi))
+        (launches_converged, stencils_converged, blurs_converged,
+         gn_converged) = phase_converged(smi)
         launches_parallel = phase_parallel(tmp, smi)
     kernels = [dict(name=name, route="cuda", source=SOURCE,
                     replaces=REPLACES[name], launches=launches[name],
@@ -2276,8 +2363,10 @@ def main():
         direction = label.split("/")[0]
         r.update(launches=blurs[direction],
                  launches_converged=blurs_converged[direction])
+    for r in rec["gn_stats"].values():
+        r.update(launches=gn, launches_converged=gn_converged)
     print(json.dumps({"kernels": kernels, "stencils": rec["stencils"],
-                      "blurs": rec["blurs"]}))
+                      "blurs": rec["blurs"], "gn_stats": rec["gn_stats"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

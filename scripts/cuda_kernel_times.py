@@ -15,9 +15,12 @@ launch of ``KERNEL_BATCH`` volumes at the fit's shapes, as this tree's
 the misaligned bench fit's own maps, as this tree's
 ``chip_smoke.bench_pull_cases`` makes them, then the finite-difference
 stencils of ``chip_smoke.stencil_cases`` and the blur's passes of
-``chip_smoke.blur_cases`` where the tree has them, each beside the plain
+``chip_smoke.blur_cases`` and the rigid GN statistics of
+``chip_smoke.gn_cases`` where the tree has them, each beside the plain
 chain it replaced) it prints the max abs difference
-between kernel and plain version (must be 0), the kernel's device ms per
+between kernel and plain version (must be 0; for the GN statistics the
+largest difference relative to a moment's sum of |terms|, which the
+float64 sums' order makes ~1e-16), the kernel's device ms per
 call three times, and its host ms. A tree whose kernels read
 their maps from device memory (``ops.resample.push_plan`` exists) is given
 the maps as CUDA tensors and push its plan, as its fit chunk launches them;
@@ -105,6 +108,12 @@ def main():
         report(cs, args.label, f"blur {direction}/{case}", kern, err,
                "device")
         report(cs, args.label, f"plain chain {direction}/{case}", plain, 0.0,
+               "device")
+    for case, kern, plain, absolute, _ in (cs.gn_cases("cuda") if hasattr(
+            cs, "gn_cases") else ()):
+        err = float(((kern() - plain()).abs() / absolute()).max())
+        report(cs, args.label, f"gn_stats {case}", kern, err, "device")
+        report(cs, args.label, f"plain chain gn_stats {case}", plain, 0.0,
                "device")
 
 

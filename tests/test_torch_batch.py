@@ -216,7 +216,7 @@ def test_a_batch_of_one_is_the_single_fit_bitwise():
                                          "fit.chunk.read", "fit.finish"}
     fit, = [s for s in spans_a if s.name == "fit"]
     assert set(fit.attrs) == {"B", "n_iter", "syncs", "method", "stencils",
-                              "resamples", "blurs"}
+                              "resamples", "blurs", "gn_stats"}
 
 
 @pytest.mark.parametrize("form", ["fit", "batch"])

@@ -1160,3 +1160,162 @@ def test_captured_blur_counts_its_replays(cuda):
         torch.cuda.synchronize()
         assert [f.launches - m for f, m in zip(conv.BLURS, n0)] == [3, 3]
         assert torch.equal(_bits(out), _bits(want))
+
+
+# the rigid GN statistics (ops/gn_stats.py): the grids they run on, the
+# observations' dim_yx of brainweb_sr3 and of brainweb_common after the
+# atlas alignment (each thick axis), denoising's dim_x (no C^T C), and small
+# ones off the kernel's blocks (z not a multiple of 32, y over 128 rows)
+GN_CASES = {
+    "sr3": ((181, 217, 185), True),
+    "common_thick2": ((369, 441, 230), True),
+    "common_thick1": ((369, 275, 369), True),
+    "common_thick0": ((230, 441, 369), True),
+    "denoise": ((181, 217, 181), False),
+    "small": ((13, 9, 21), True),
+    "tall": ((3, 300, 70), False),
+}
+
+
+def _gn_case(name, B, seed, cuda):
+    """(gr, diff, ctc, coords) of a case: normal gradients, a residual with
+    a tenth of zeros, a positive C^T C (or 1.0), centred coordinates."""
+    from unires_torch.solvers.rigid import _centred_coords
+
+    dim, with_ctc = GN_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    lead = (B,) if B else ()
+    gr = torch.randn(lead + dim + (3,), generator=g, device=cuda)
+    diff = torch.randn(lead + dim, generator=g, device=cuda)
+    diff[diff.abs() < 0.125] = 0.0
+    ctc = (torch.rand(dim, generator=g, device=cuda) + 0.25 if with_ctc
+           else 1.0)
+    coords = _centred_coords(dim, tuple((n - 1) / 2 for n in dim), cuda)
+    return gr, diff, ctc, coords
+
+
+def _gn_abs(gr, diff, ctc, coords):
+    """Each moment's sum of |terms|: the plain chain on absolute values."""
+    from unires_torch.ops import gn_stats
+
+    return gn_stats.gn_moments_plain(
+        gr.abs(), diff.abs(), ctc.abs() if torch.is_tensor(ctc) else ctc,
+        tuple(c.abs() for c in coords))
+
+
+def _gn_delta(v, dRq, center, cuda):
+    from unires_torch.solvers.rigid import _LKP, _assemble, gn_delta
+
+    G, W = v[:12].reshape(3, 4), v[12:].reshape(6, 10)
+    g, H = _assemble(G[:, 0], G[:, 1:4], W[:, 0], W[:, 1:4], W[:, 4:], dRq,
+                     center, torch.as_tensor(_LKP, device=cuda))
+    return gn_delta(g, H)
+
+
+@pytest.mark.parametrize("name", list(GN_CASES))
+def test_gn_moments_match_plain_chain(cuda, name):
+    """B = 2 subjects in one call: every moment within 1e-12 of the plain
+    chain's, relative to its sum of |terms| (the float64 sums' order alone
+    differs); the GN step from them within 1e-10 of its largest entry; two
+    runs equal to the bit and each subject its own call's moments to the
+    bit; two launches counted."""
+    from unires_torch.ops import gn_stats
+
+    args = _gn_case(name, 2, 41, cuda)
+    n0 = gn_stats.gn_moments.launches
+    got = gn_stats.gn_moments(*args)
+    torch.cuda.synchronize()
+    assert gn_stats.gn_moments.launches - n0 == 2
+    want = gn_stats.gn_moments_plain(*args)
+    scale = _gn_abs(*args)
+    assert got.shape == want.shape == (2, gn_stats.N_MOMENTS)
+    assert got.dtype == torch.float64 and float(scale.min()) > 0
+    rel = float(((got - want).abs() / scale).max())
+    assert rel <= 1e-12, rel
+    again = gn_stats.gn_moments(*args)
+    assert torch.equal(again.view(torch.int64), got.view(torch.int64))
+    gr, diff, ctc, coords = args
+    for b in range(2):
+        one = gn_stats.gn_moments(gr[b], diff[b], ctc, coords)
+        assert one.shape == (gn_stats.N_MOMENTS,)
+        assert torch.equal(one.view(torch.int64), got[b].view(torch.int64))
+    dim = GN_CASES[name][0]
+    center = torch.tensor([(n - 1) / 2 for n in dim], dtype=torch.float64,
+                          device=cuda)
+    dRq = torch.from_numpy(np.random.default_rng(42).normal(
+        size=(6, 4, 4))).to(cuda)
+    for b in range(2):
+        d_got = _gn_delta(got[b], dRq, center, cuda)
+        d_want = _gn_delta(want[b], dRq, center, cuda)
+        err = float((d_got - d_want).abs().max() / d_want.abs().max())
+        assert err <= 1e-10, err
+
+
+def test_gn_moments_dispatch_by_type_layout_and_shape(cuda):
+    """A CUDA tensor launches the kernel or raises: a float64 volume or
+    float32 coordinates TypeError; a gradient that is not C-contiguous, a
+    residual of another shape, a C^T C of another grid, a C^T C that is a
+    number other than 1 or coordinates off the device ValueError; nothing
+    launches."""
+    from unires_torch.ops import gn_stats
+
+    gr, diff, ctc, coords = _gn_case("small", 2, 43, cuda)
+    fn = gn_stats.gn_moments
+    n0 = fn.launches
+    with pytest.raises(TypeError):
+        fn(gr.double(), diff, ctc, coords)
+    with pytest.raises(TypeError):
+        fn(gr, diff.double(), ctc, coords)
+    with pytest.raises(TypeError):
+        fn(gr, diff, ctc, tuple(c.float() for c in coords))
+    with pytest.raises(ValueError):
+        fn(gr.transpose(1, 2), diff.transpose(1, 2), ctc.transpose(0, 1),
+           coords)
+    with pytest.raises(ValueError):
+        fn(gr.permute(0, 1, 2, 4, 3).contiguous().permute(0, 1, 2, 4, 3),
+           diff, ctc, coords)
+    with pytest.raises(ValueError):
+        fn(gr, diff[:, :-1], ctc, coords)
+    with pytest.raises(ValueError):
+        fn(gr, diff, ctc[:-1], coords)
+    with pytest.raises(ValueError):
+        fn(gr, diff, 2.0, coords)
+    with pytest.raises(ValueError):
+        fn(gr, diff, ctc, tuple(c.cpu() for c in coords))
+    torch.cuda.synchronize()
+    assert fn.launches == n0
+
+
+def test_captured_gn_moments_run_in_an_if_node(cuda):
+    """The statistics inside a captured graph's IF node, as the fit
+    chunk's rigid round runs them: a true predicate replays the eager
+    call's moments to the bit and counts its two launches, a false one
+    launches nothing."""
+    from unires_torch.ops import gn_stats
+    from unires_torch.utils.graph import capture, cond, forced
+
+    gr, diff, ctc, coords = _gn_case("sr3", 2, 44, cuda)
+    out = torch.zeros((2, gn_stats.N_MOMENTS), dtype=torch.float64,
+                      device=cuda)
+    pred = torch.ones((), dtype=torch.bool, device=cuda)
+
+    def step():
+        cond(pred, lambda: out.copy_(gn_stats.gn_moments(gr, diff, ctc,
+                                                         coords)))
+
+    with forced():
+        step()
+    graph = capture(step)
+    for seed, p in ((45, True), (46, False), (47, True)):
+        new = _gn_case("sr3", 2, seed, cuda)
+        gr.copy_(new[0])
+        diff.copy_(new[1])
+        ctc.copy_(new[2])
+        before = out.clone()
+        pred.fill_(p)
+        n0 = gn_stats.gn_moments.launches
+        graph.replay()
+        torch.cuda.synchronize()
+        assert gn_stats.gn_moments.launches - n0 == 2 * p
+        want = gn_stats.gn_moments(gr, diff, ctc, coords) if p else before
+        assert torch.equal(out.view(torch.int64), want.view(torch.int64))

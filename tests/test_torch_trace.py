@@ -312,7 +312,8 @@ def test_a_registered_launch_group_reaches_the_fit_span(chans, form,
     """A kernel wrapped as ``Counted(fn, group=...)`` is counted in the
     ``fit`` span of a single fit and of a batch with no edit to
     ``pipeline/fit.py`` or ``parallel/fit_batch.py``, beside the stencils,
-    resamples and blurs; the registry is as it was afterwards. The stand-in
+    resamples, blurs and GN statistics; the registry is as it was
+    afterwards. The stand-in
     kernel counts its own launches in a CPU tensor, as a kernel does on the
     device, once an iteration."""
     from unires_torch.ops import cuda_build
@@ -338,7 +339,7 @@ def test_a_registered_launch_group_reaches_the_fit_span(chans, form,
                   else fit_batch([x], [y], sett)[0])[-1]
         fit, = trace.spans("fit", since)
     assert n_iter == 5 and fit.attrs["probes"] == 5 == probe.launches
-    assert {"stencils", "resamples", "blurs"} <= set(fit.attrs)
+    assert {"stencils", "resamples", "blurs", "gn_stats"} <= set(fit.attrs)
     assert {k: list(v) for k, v in cuda_build.GROUPS.items()} == before
 
 

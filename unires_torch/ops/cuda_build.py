@@ -45,8 +45,8 @@ _STENCIL = [_VP] * 3 + [_I] * 5 + [_LL] + [_F] * 3 + [_VP, _VP]
 # the taps (host floats) and their count, batch, the batch's stride,
 # counter, stream
 _BLUR = [_VP, _VP] + [_I] * 4 + [_VP, _I, _I, _LL, _VP, _VP]
-# C signatures of csrc/resample.cu, csrc/finite_diff.cu, csrc/blur.cu and
-# csrc/graph.cu
+# C signatures of csrc/resample.cu, csrc/finite_diff.cu, csrc/blur.cu,
+# csrc/gn_stats.cu and csrc/graph.cu
 # (every pointer and the stream as c_void_p, so that ctypes never truncates
 # a 64-bit address)
 _SIGNATURES = {
@@ -61,6 +61,10 @@ _SIGNATURES = {
     "unires_fd_membrane": _STENCIL,
     "unires_blur_down": _BLUR,
     "unires_blur_up": _BLUR,
+    # gr, diff, ctc, the three coordinate vectors, (X, Y, Z), batch, the
+    # three batch strides, partials, out, counter, stream
+    "unires_gn_moments": [_VP] * 6 + [_I] * 4 + [_LL] * 3 + [_VP] * 4,
+    "unires_gn_partials": [_I] * 3,
     "unires_if_begin": [_VP] * 4,
     "unires_if_end": [_VP, _VP],
     "unires_while_begin": [_VP] * 5,

@@ -15,7 +15,9 @@ weight volume (``sum_k W``, ``sum_j W``, ``sum_i W``), which give every
 moment of order <= 2 over separable coordinates: 3 volume passes per weight
 instead of 10. With float64 sums the coordinates need no normalisation
 (the JAX fit loop divides them by the half-extent to keep its float32 sums
-accurate).
+accurate). The fit's GN round takes the moments of G and W from
+``ops.gn_stats.gn_moments``: on a CUDA tensor one kernel pass over the
+gradient, on a CPU tensor this plain chain.
 
 :func:`_moments`, :func:`_assemble` and :func:`gn_delta` also serve the fit
 loop (``solvers.fitloop``) and co-registration (``pipeline.registration``).
@@ -29,14 +31,14 @@ from ..geometry import affine_translation, dexpm, expm, fov_centre, rigid_from_q
 from ..models.forward import make_obs_suite
 from ..models.proj_op import ProjOp, proj_info
 from ..ops.conv import blur_down_sep, blur_up_sep
+from ..ops.gn_stats import gn_moments
 from ..ops.resample import affine_to_M, pull
 from ..ops.scaling import apply_scaling
-from ..utils.batch import each, sum_f64
+from ..utils.batch import sum_f64
 from ..utils.host import to_host
 
 # symmetric 3x3 -> 6-vector index map (reference _update.py:564)
 _LKP = np.array([[0, 3, 4], [3, 1, 5], [4, 5, 2]])
-_PAIRS = [(0, 0), (1, 1), (2, 2), (0, 1), (0, 2), (1, 2)]
 
 
 def _centred_coords(dim, center, device):
@@ -147,7 +149,8 @@ def match_stats_device(dat_x, dat_y, M, scl, tau, suite, po: ProjOp, sr,
     """Device part of one GN round: a (1 + 3*4 + 6*10,) float64 tensor
     (ll, moments of G_0..G_2, moments of W_0..W_5). A batch of volumes
     (B, ...) at maps (B, 3, 4), scales and taus (B,) gives (B, 73), each
-    subject's sums and moments taken alone (``utils.batch.each``)."""
+    subject's sums and moments taken alone (``utils.batch.sum_f64``,
+    ``ops.gn_stats.gn_moments``)."""
     dat_yx = suite["pull"](dat_y, M)
     if sr:
         dat_yx = blur_down_sep(dat_yx, po.smo_ker_1d, po.ratio)
@@ -159,13 +162,8 @@ def match_stats_device(dat_x, dat_y, M, scl, tau, suite, po: ProjOp, sr,
     diff = torch.where(msk & (dat_yx != 0), dat_yx - dat_x, 0.0)
     if sr:
         diff = blur_up_sep(diff, po.smo_ker_1d, po.ratio)
-    G = torch.stack([gr[..., d] * diff for d in range(3)], dim=-4)
-    W = torch.stack([gr[..., d1] * gr[..., d2] * ctc for d1, d2 in _PAIRS],
-                    dim=-4)
-    moments = each(lambda g: _moments(g, coords, 1).reshape(-1), G, 4)
-    return torch.cat([ll[..., None], moments,
-                      each(lambda w: _moments(w, coords, 2).reshape(-1), W,
-                           4)], dim=-1)
+    return torch.cat([ll[..., None], gn_moments(gr, diff, ctc, coords)],
+                     dim=-1)
 
 
 def split_stats(v: np.ndarray):
