@@ -24,6 +24,9 @@ truth (``judge.py``) can see them.
     answers for the rest too.
 ``answer_altered``
     the first channel of the answer is scaled by 1.001 after the fit.
+``fov_inside_zeroed``
+    the FOV clean of a single-observation fit also zeroes a block of 4 x 4
+    x 4 voxels at the centre of the recon grid, inside the field of view.
 """
 from __future__ import annotations
 
@@ -128,3 +131,17 @@ def answer_altered():
 
     yield from _patched(fit.FitRun, "finish", altered)
 
+
+
+@fault
+def fov_inside_zeroed():
+    fit = _mod("pipeline.fit")
+    clean_fov = fit.clean_fov
+
+    def zeroed(x, y):
+        clean_fov(x, y)
+        for yc in y:
+            i, j, k = (n // 2 - 2 for n in yc.dat.shape)
+            yc.dat[i:i + 4, j:j + 4, k:k + 4] = 0.0
+
+    yield from _patched(fit, "clean_fov", zeroed)

@@ -8,7 +8,13 @@ subjects is ``pipeline.run.preproc_batch`` (each subject's ``init``, then
 program's ``init`` and fit functions are wrapped to time the inits and keep
 what the judge needs of each subject: the recon volumes, the output grid,
 the fitted poses and scales, the registration transforms, the last
-objective row and the iterations.
+objective row and the iterations. A single-observation fit ends by zeroing
+the recon outside the observation's field of view (UniRes' ``clean_fov``,
+``pipeline.fit.clean_fov``), after its last objective row: the voxels it
+changes and the values the fit held there are kept too (``cleaned``), so
+that the judge can hold the objective to the volumes it was reported for
+and check that every voxel it changed lies outside the field of view. That
+capture is harness work: its seconds are left out of the fit's.
 
 Spans are taken here, around calls into the program's layers (the
 registration entries that ``init`` calls, the fit chunk's warm-up and
@@ -54,9 +60,10 @@ def settings(config, device, max_iter=None) -> Settings:
 
 def run_unit(config, subjects, device, max_iter=None):
     """One unit: (init seconds, fit seconds, per-subject outputs). The fit
-    seconds are the unit's less its inits."""
-    inits, fits, t_init = [], [], [0.0]
+    seconds are the unit's less its inits and the FOV clean's capture."""
+    inits, fits, t_init, t_kept, cleaned = [], [], [0.0], [0.0], {}
     init, fit_one, fit_many = run_mod.init, run_mod._fit, batch_mod.fit_batch
+    clean_fov = fit_mod.clean_fov
 
     def timed_init(*args, **kw):
         sync(device)
@@ -76,8 +83,24 @@ def run_unit(config, subjects, device, max_iter=None):
         fits.extend(res)
         return res
 
+    def kept_clean(x, y):
+        sync(device)
+        t0 = time.perf_counter()
+        before = [yc.dat.clone() for yc in y]
+        sync(device)
+        t1 = time.perf_counter()
+        clean_fov(x, y)
+        sync(device)
+        t2 = time.perf_counter()
+        idx = [torch.nonzero((b != yc.dat).reshape(-1)).reshape(-1)
+               for b, yc in zip(before, y)]
+        cleaned[id(y)] = [(i, b.reshape(-1)[i]) for i, b in zip(idx, before)]
+        sync(device)
+        t_kept[0] += t1 - t0 + time.perf_counter() - t2
+
     run_mod.init, run_mod._fit, batch_mod.fit_batch = (
         timed_init, kept_fit, kept_fits)
+    fit_mod.clean_fov = kept_clean
     try:
         sett = settings(config, device, max_iter)
         sync(device)
@@ -91,12 +114,16 @@ def run_unit(config, subjects, device, max_iter=None):
     finally:
         run_mod.init, run_mod._fit, batch_mod.fit_batch = (
             init, fit_one, fit_many)
-    return t_init[0], total - t_init[0], [
-        _outputs(x, st, *f) for (x, _, st), f in zip(inits, fits)]
+        fit_mod.clean_fov = clean_fov
+    return t_init[0], total - t_init[0] - t_kept[0], [
+        _outputs(x, st, *f, cleaned=cleaned.get(id(f[0])))
+        for (x, _, st), f in zip(inits, fits)]
 
 
-def _outputs(x, sett, y, R, jtv, obj, n_iter):
-    """What the judge reads of one fitted subject."""
+def _outputs(x, sett, y, R, jtv, obj, n_iter, cleaned=None):
+    """What the judge reads of one fitted subject; ``cleaned``: per channel
+    the flat indices of the voxels that the FOV clean zeroed and the fit's
+    values there, or None."""
     obs = [o for xc in x for o in xc]
     chan = [c for c, xc in enumerate(x) for _ in xc]
     obj = np.asarray(obj, np.float64).reshape(-1, 3)
@@ -110,7 +137,7 @@ def _outputs(x, sett, y, R, jtv, obj, n_iter):
         mat_atlas=(None if sett.mat_atlas is None
                    else np.array(sett.mat_atlas, np.float64)),
         obj_last=obj[-1].tolist() if len(obj) else None,
-        n_iter=int(n_iter), max_iter=int(sett.max_iter))
+        n_iter=int(n_iter), max_iter=int(sett.max_iter), cleaned=cleaned)
 
 
 class Spans:

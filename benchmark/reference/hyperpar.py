@@ -7,6 +7,9 @@ fitted by EM on the histogram in float64; the background class gives the
 noise sd (tau = 1 / sd^2), the classes' gap the tissue level mu. Channel c's
 prior weight is lambda_c = reg_scl sqrt(1 / C) / mean(mu of its
 observations) at the schedule's last position (its weight ``reg_scl``).
+A CT observation (UniRes' ``--ct``) histograms every voxel, negatives
+included, and in a super-resolution fit its mu enters lambda as mu / 4
+(unires/_core.py:273-280).
 """
 from __future__ import annotations
 
@@ -49,10 +52,11 @@ def _gmm2(centers, counts, max_iter=1000, tol=1e-8):
     return np.array([m1, m2]), np.array([s1, s2])
 
 
-def noise_and_level(x: np.ndarray):
+def noise_and_level(x: np.ndarray, ct=False):
     """(background sd, tissue level mu) of an observation's voxels."""
     v = np.asarray(x).ravel()
-    v = v[v >= 0]
+    if not ct:
+        v = v[v >= 0]
     vmin, vmax = float(v.min()), float(v.max())
     counts, edges = np.histogram(v, bins=1024, range=(vmin, vmax))
     centers = 0.5 * (edges[:-1] + edges[1:])
@@ -62,14 +66,16 @@ def noise_and_level(x: np.ndarray):
     return sd, float(abs(means[1 - bg] - means[bg]))
 
 
-def weights(channels, reg_scl):
+def weights(channels, reg_scl, ct=False, sr=True):
     """(tau per observation, lambda per channel) of ``channels``: per channel
-    the list of its observations' voxels (numpy)."""
+    the list of its observations' voxels (numpy); ``ct``: the observations
+    are CT, ``sr``: the fit is a super-resolution (else a denoising)."""
     taus, lams = [], []
     C = len(channels)
     for obs in channels:
-        est = [noise_and_level(x) for x in obs]
+        est = [noise_and_level(x, ct) for x in obs]
         taus.extend(1.0 / sd ** 2 for sd, _ in est)
+        mus = [mu / 4.0 if ct and sr else mu for _, mu in est]
         lams.append(float(reg_scl) * math.sqrt(1.0 / C)
-                    / float(np.mean([mu for _, mu in est])))
+                    / float(np.mean(mus)))
     return taus, lams

@@ -7,6 +7,13 @@ on the card in a few large calls. Its band-limited noise comes from a
 ``torch.Generator`` on the volume's device, so a seed gives one anatomy per
 device type. The grid starts at the BrainWeb MNI placement (-90, -126, -72)
 mm and has ``vx`` mm voxels, so a coarse grid still holds the whole head.
+
+A configuration may give its own tissue table (``phantom.tissues``:
+contrast -> the six class values, background first, in its own units, such
+as Hounsfield units for CT). Such a contrast takes the texture on every
+class but the background, which keeps its value exactly, and is not
+clamped. The built-in MR contrasts (``CLASS_INTENSITY``, fractions of the
+amplitude, background 0) are clamped at 0.
 """
 from __future__ import annotations
 
@@ -16,8 +23,8 @@ import torch
 
 ORIGIN_MM = (-90.0, -126.0, -72.0)
 
-# tissue intensity per class, as fractions of the amplitude: 0 background,
-# 1 CSF, 2 GM, 3 WM, 4 scalp, 5 skull
+CLASSES = ("background", "CSF", "GM", "WM", "scalp", "skull")
+# the MR contrasts' intensity per class, as fractions of the amplitude
 CLASS_INTENSITY = {
     "t1": (0.0, 0.18, 0.62, 1.00, 0.45, 0.08),
     "t2": (0.0, 1.00, 0.55, 0.36, 0.30, 0.05),
@@ -39,11 +46,9 @@ def _smooth_noise(dim, sigma_vox, gen, device):
     return s / s.std().clamp_min(1e-12)
 
 
-def brain_phantom(dim, vx, contrasts, amplitude, seed, texture, device):
-    """{contrast: (dim) float32 volume} on ``device``; one anatomy for all."""
-    dim = tuple(int(d) for d in dim)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+def _classes(dim, vx, gen, device):
+    """The anatomy: the class (``CLASSES``) of every voxel, (dim) int64;
+    draws the folds from ``gen``."""
     axes = [ORIGIN_MM[d] + vx * torch.arange(dim[d], device=device,
                                              dtype=torch.float32)
             for d in range(3)]
@@ -67,10 +72,42 @@ def brain_phantom(dim, vx, contrasts, amplitude, seed, texture, device):
     vent = torch.minimum(rho((-14.0, -28.0, 20.0), (10.0, 34.0, 12.0)),
                          rho((14.0, -28.0, 20.0), (10.0, 34.0, 12.0)))
     cls[(vent <= 1.0) & (cls == 3)] = 1  # ventricles
+    return cls
+
+
+def _generator(seed, device):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def brain_classes(dim, vx, seed, device):
+    """The class of every voxel of :func:`brain_phantom`'s anatomy for the
+    same ``dim``, ``vx`` and ``seed``, (dim) int64 on ``device``."""
+    dim = tuple(int(d) for d in dim)
+    return _classes(dim, vx, _generator(seed, device), device)
+
+
+def brain_phantom(dim, vx, contrasts, amplitude, seed, texture, device,
+                  tissues=None):
+    """{contrast: (dim) float32 volume} on ``device``; one anatomy for all.
+    ``tissues``: the configuration's own tables (module docstring)."""
+    dim = tuple(int(d) for d in dim)
+    gen = _generator(seed, device)
+    cls = _classes(dim, vx, gen, device)
     tex = (1.0 + texture * _smooth_noise(dim, 1.5 / vx, gen, device)
            if texture else 1.0)
     out = {}
     for c in contrasts:
+        if tissues and c in tissues:
+            if len(tissues[c]) != len(CLASSES):
+                raise ValueError(f"tissues[{c!r}] needs one value per class "
+                                 f"{CLASSES}")
+            table = torch.tensor(tissues[c], dtype=torch.float32,
+                                 device=device)
+            out[c] = torch.where(cls == 0, table[0],
+                                 table[cls] * tex).contiguous()
+            continue
         table = torch.tensor(CLASS_INTENSITY[c], dtype=torch.float32,
                              device=device) * float(amplitude)
         out[c] = torch.clamp(table[cls] * tex, min=0.0).contiguous()
